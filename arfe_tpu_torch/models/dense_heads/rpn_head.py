@@ -1,0 +1,138 @@
+"""RPN head, proposal path (counterpart of
+``arfe_tpu/models/dense_heads/rpn_head.py:20-50,156-302``).
+
+Per level: shared 3x3 conv + relu, 1x1 cls / reg convs read channel-major,
+so candidates are in (anchor, position) order; top ``nms_pre`` by logit
+(stable sort: ties keep that order, as ``jax.lax.top_k`` does); decode,
+clamp to the image, min-size filter; NMS per (image, level), which with
+level-keyed suppression is the reference's batched NMS; then the top
+``nms_post`` kept boxes of the image. The TPU-only ``approx_topk`` key is
+ignored.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...core.bbox.coder import delta2bbox
+from ...layers import Conv2d
+from ...ops.nms import nms_batched
+from ...registry import HEADS
+from .anchor_head import AnchorHead
+
+
+def _stable_topk(x, k):
+    """The k largest of each row, ties in index order (jax.lax.top_k)."""
+    neg, idx = torch.sort(-x, dim=-1, stable=True)
+    return -neg[..., :k], idx[..., :k]
+
+
+@HEADS.register_module()
+class RPNHead(AnchorHead):
+    def __init__(self, in_channels, **kwargs):
+        super().__init__(1, in_channels, **kwargs)
+
+    def _init_layers(self):
+        self.rpn_conv = Conv2d(self.in_channels, self.feat_channels, 3,
+                               padding=1, weight_init='normal', init_std=0.01)
+        self.rpn_cls = Conv2d(self.feat_channels,
+                              self.num_anchors * self.cls_out_channels, 1,
+                              weight_init='normal', init_std=0.01)
+        self.rpn_reg = Conv2d(self.feat_channels, self.num_anchors * 4, 1,
+                              weight_init='normal', init_std=0.01)
+
+    def shared_single(self, x):
+        return torch.relu(self.rpn_conv(x))
+
+    def get_proposals(self, feats, img_shapes, cfg=None):
+        """Proposals of each image.
+
+        Args:
+            feats: per-level (B, C, H, W) features.
+            img_shapes: (B, 2) f32 (h, w) of the image content.
+        Returns:
+            proposals (B, nms_post, 5) [x1, y1, x2, y2, score] padded with
+            [0, 0, 0, 0, -1], and their (B, nms_post) validity.
+        """
+        cfg = self.test_cfg if cfg is None else cfg
+        mlvl_anchors = self.anchor_generator.grid_anchors(
+            [tuple(f.shape[2:]) for f in feats])
+        nms_pre = cfg.get('nms_pre', -1)
+        num_a = self.num_anchors
+        scores_l, preds_l, anchors_l = [], [], []
+        for x, anchors in zip(feats, mlvl_anchors):
+            shared = self.shared_single(x)
+            b, _, h, w = shared.shape
+            hw = h * w
+            cls_t = self.rpn_cls(shared).float().reshape(b, -1, hw)
+            reg_t = self.rpn_reg(shared).float().reshape(b, num_a, 4, hw)
+            if self.use_sigmoid_cls:
+                logits = cls_t.reshape(b, num_a * hw)
+            else:
+                # softmax fg prob of a (fg, bg) pair == sigmoid(l0 - l1)
+                lt = cls_t.reshape(b, num_a, 2, hw)
+                logits = (lt[:, :, 0] - lt[:, :, 1]).reshape(b, num_a * hw)
+            preds = reg_t.transpose(1, 2).reshape(b, 4, num_a * hw)
+            anchors = torch.from_numpy(
+                anchors.reshape(hw, num_a, 4).transpose(1, 0, 2)
+                .reshape(num_a * hw, 4)).to(x.device)
+            hwa = num_a * hw
+            if 0 < nms_pre < hwa:
+                lg, idx = _stable_topk(logits, nms_pre)
+                prd = torch.gather(preds, 2, idx[:, None, :].expand(
+                    b, 4, nms_pre)).transpose(1, 2)
+                anc = anchors[idx]
+            else:
+                lg, prd = logits, preds.transpose(1, 2)
+                anc = anchors.expand(b, hwa, 4)
+            scores_l.append(torch.sigmoid(lg))
+            preds_l.append(prd)
+            anchors_l.append(anc)
+        return self._finish_proposals(scores_l, preds_l, anchors_l,
+                                      img_shapes, cfg)
+
+    def _finish_proposals(self, scores_l, preds_l, anchors_l, img_shapes,
+                          cfg):
+        nms_post = cfg.get('nms_post', cfg.get('max_num', 1000))
+        counts = [s.shape[1] for s in scores_l]
+        k_cap = max(counts)
+        b = scores_l[0].shape[0]
+        num_lvls = len(scores_l)
+
+        def pad_to(x, fill=0.0):
+            pad = k_cap - x.shape[1]
+            if pad == 0:
+                return x
+            return torch.cat([x, x.new_full((b, pad) + x.shape[2:], fill)], 1)
+
+        scores = torch.stack([pad_to(s, -1.0) for s in scores_l], 1)
+        preds = torch.stack([pad_to(p) for p in preds_l], 1)
+        anchors = torch.stack([pad_to(a) for a in anchors_l], 1)
+        ar = torch.arange(k_cap, device=scores.device)
+        lvl_valid = torch.stack([ar < c for c in counts])[None].expand(
+            b, num_lvls, k_cap)
+        proposals = delta2bbox(anchors, preds, self.bbox_coder.means,
+                               self.bbox_coder.stds,
+                               max_shape=img_shapes[:, None, :])
+        min_size = cfg.get('min_bbox_size', 0)
+        w = proposals[..., 2] - proposals[..., 0]
+        h = proposals[..., 3] - proposals[..., 1]
+        valid = (w >= min_size) & (h >= min_size) & lvl_valid
+
+        dets, _, kept = nms_batched(
+            proposals.reshape(b * num_lvls, k_cap, 4),
+            scores.reshape(b * num_lvls, k_cap), cfg['nms_thr'],
+            max_out=k_cap, valid_mask=valid.reshape(b * num_lvls, k_cap))
+        dets = dets.reshape(b, num_lvls * k_cap, 5)
+        kept = kept.reshape(b, num_lvls * k_cap)
+        kept_scores = torch.where(kept, dets[..., 4], float('-inf'))
+        k_out = min(nms_post, num_lvls * k_cap)
+        top_vals, top_idx = _stable_topk(kept_scores, k_out)
+        dets = torch.gather(dets, 1, top_idx[..., None].expand(b, k_out, 5))
+        out_valid = torch.isfinite(top_vals)
+        pad_row = dets.new_tensor([0., 0., 0., 0., -1.])
+        dets = torch.where(out_valid[..., None], dets, pad_row)
+        if k_out < nms_post:
+            pad = nms_post - k_out
+            dets = torch.cat([dets, pad_row.expand(b, pad, 5)], 1)
+            out_valid = torch.cat([out_valid, out_valid.new_zeros(b, pad)], 1)
+        return dets, out_valid

@@ -1,0 +1,53 @@
+"""Two-stage detector, inference (counterpart of
+``arfe_tpu/models/detectors/two_stage.py:11-121,155-157``)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...registry import DETECTORS
+from ..builder import build_backbone, build_head, build_neck
+
+
+@DETECTORS.register_module()
+class TwoStageDetector(nn.Module):
+    def __init__(self, backbone, neck=None, rpn_head=None, roi_head=None,
+                 train_cfg=None, test_cfg=None, pretrained=None):
+        super().__init__()
+        test_cfg = test_cfg or {}
+        self.backbone = build_backbone(backbone)
+        self.neck = build_neck(neck) if neck is not None else None
+        if rpn_head is None:
+            raise NotImplementedError('detectors without an RPN head take '
+                                      'external proposals: not ported')
+        self.rpn_head = build_head(dict(rpn_head, train_cfg=None,
+                                        test_cfg=test_cfg.get('rpn')))
+        self.roi_head = build_head(dict(roi_head, train_cfg=None,
+                                        test_cfg=test_cfg.get('rcnn')))
+
+    def extract_feat(self, img):
+        """NHWC images (B, H, W, 3) -> per-level NCHW features."""
+        x = self.backbone(img.permute(0, 3, 1, 2))
+        return x if self.neck is None else self.neck(x)
+
+    @torch.inference_mode()
+    def simple_test(self, img, img_shapes, scale_factors, rescale=False):
+        """Batched inference.
+
+        Args:
+            img: (B, H, W, 3) images, f32 or bf16, on the model's device.
+            img_shapes: (B, 2) f32 (h, w) of each image's content.
+            scale_factors: (B, 4) f32 resize factors (used with ``rescale``).
+        Returns:
+            dets (B, max_per_img, 5) padded with [0, 0, 0, 0, -1], labels
+            (B, max_per_img) int32, valid (B, max_per_img) bool.
+        """
+        x = self.extract_feat(img)
+        props, prop_valid = self.rpn_head.get_proposals(x, img_shapes)
+        return self.roi_head.simple_test(x, props, prop_valid, img_shapes,
+                                         scale_factors, rescale=rescale)
+
+
+@DETECTORS.register_module()
+class FasterRCNN(TwoStageDetector):
+    """ref: mmdet/models/detectors/faster_rcnn.py"""

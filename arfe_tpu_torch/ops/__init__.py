@@ -1,0 +1,2 @@
+"""Ops with a hand-written CUDA kernel beside their plain PyTorch version,
+plus NMS and NonLocal2D."""

@@ -1,0 +1,81 @@
+"""Builds the hand-written CUDA kernels under ``csrc/`` and loads them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
+by ``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` at the repository
+root, where ``<hash>`` covers the source and the flags, then loaded with
+``ctypes``. Nothing is built at import: the first wrapper call builds its own
+library, and :func:`build` starts several ``nvcc`` processes at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    candidate = os.path.join(cuda_home, 'bin', 'nvcc')
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError('nvcc not found: the CUDA kernels are built on a '
+                       'machine with the CUDA toolkit')
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f'{name}.cu'
+    digest = hashlib.sha256(src.read_bytes()
+                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f'{name}-{digest}.so'
+
+
+def build(names) -> dict[str, str]:
+    """Compile the named sources that are not built yet, all at once.
+
+    Returns ``{name: compiler output}`` for the sources compiled now (the
+    ``-Xptxas -v`` register and spill report); raises if one fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f'.tmp{os.getpid()}')
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    logs, failed = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, target)
+        else:
+            failed.append(name)
+    if failed:
+        raise RuntimeError('nvcc failed for ' + ', '.join(failed) + ':\n'
+                           + '\n'.join(logs[n] for n in failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
+    return lib

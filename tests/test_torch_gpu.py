@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Marked ``gpu``; every test skips where there is no CUDA device. This file
+imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import os
+
+import pytest
+import torch
+
+from arfe_tpu_torch.apis import init_detector
+from arfe_tpu_torch.config import Config
+from arfe_tpu_torch.core.bbox import bbox_overlaps
+from arfe_tpu_torch.ops import fused_attention as fa
+from arfe_tpu_torch.ops import roi_align as ra
+
+pytestmark = pytest.mark.gpu
+
+FLAGSHIP_CFG = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'configs', '_base_', 'models',
+    'faster_rcnn_r50_arfpn.py')
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device('cuda')
+
+
+@pytest.mark.parametrize('b,n,c,dtype', [
+    (1, 4200, 256, torch.float32), (2, 4200, 256, torch.bfloat16),
+    (2, 77, 64, torch.float32), (3, 130, 128, torch.bfloat16)])
+def test_attention_kernel_matches_plain(cuda, b, n, c, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n + c)
+    q, k, v = (torch.randn((b, n, c), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    before = fa.launches
+    got = fa.fused_softmax_attention(q, k, v)
+    assert fa.launches == before + 1
+    ref = fa.attention_plain(q, k, v)
+    # f32: another summation order; bf16: the plain version rounds p to
+    # bf16 before PV (at most 2^-9 max|v| apart), allowed twice over
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -8 * v.abs().max().item()
+    assert got.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= tol
+
+
+def test_attention_kernel_rejects_fp16(cuda):
+    q = torch.zeros((1, 64, 64), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        fa.fused_softmax_attention(q, q, q)
+
+
+def _rois(gen, dev, num=400, batch=2, h=200.0, w=336.0):
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(num, generator=gen, device=dev)
+    x1, y1 = u(-20, w), u(-20, h)
+    x2, y2 = x1 + torch.exp(u(-1, 5.5)), y1 + torch.exp(u(-1, 5.5))
+    x1[:40], x2[:40] = x2[:40].clone(), x1[:40].clone()      # inverted
+    x2[40:80], y2[40:80] = x1[40:80], y1[40:80]              # zero size
+    x2[80:120] = w + 30                                      # past the border
+    b = torch.randint(0, batch, (num,), generator=gen, device=dev).float()
+    return torch.stack([b, x1, y1, x2, y2], 1).contiguous()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('channels', [256, 64])
+def test_roi_align_kernel_matches_plain(cuda, dtype, channels):
+    gen = torch.Generator(device=cuda).manual_seed(channels)
+    strides = (4, 8, 16, 32)
+    feats = [torch.randn((2, 200 // s, 336 // s, channels), generator=gen,
+                         device=cuda).to(dtype) for s in strides]
+    rois = _rois(gen, cuda)
+    lvls = ra.map_roi_levels(rois, 4)
+    shift = torch.randint(-1, 2, lvls.shape, generator=gen, device=cuda)
+    lvls = torch.clamp(lvls + shift.to(torch.int32), 0, 3).to(torch.int32)
+    before = ra.launches
+    got = ra.roi_align_pyramid(feats, rois, lvls, (7, 7), strides, 0)
+    assert ra.launches == before + 1
+    ref = ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7), strides, 2)
+    assert got.dtype == dtype
+    d = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert d.max().item() <= 1e-5
+    else:   # the same f32 sums, rounded to bf16: at most one ulp apart
+        assert bool((d <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
+
+
+def test_detector_on_card_matches_cpu(cuda):
+    """The tiny flagship (R18, 64 channels) on the card, through both
+    kernels, against the same weights on the CPU (plain versions)."""
+    cfg = Config.fromfile(FLAGSHIP_CFG)
+    mc = cfg.model
+    mc.backbone.depth = 18
+    mc.neck[0].update(in_channels=[64, 128, 256, 512], out_channels=64)
+    mc.neck[1].in_channels = 64
+    mc.rpn_head.update(in_channels=64, feat_channels=64)
+    mc.roi_head.bbox_roi_extractor.out_channels = 64
+    mc.roi_head.bbox_head.update(in_channels=64, fc_out_channels=128)
+    cpu = init_detector(cfg, device='cpu')
+    with torch.no_grad():
+        cpu.neck[1].refine.conv_out.conv.weight.normal_(0, 0.02)
+        cpu.roi_head.bbox_head.fc_cls.weight.mul_(30)
+    gpu = init_detector(cfg, device='cuda')
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(0)
+    img = torch.randn((1, 192, 256, 3), generator=gen) * 0.2
+    shapes, scales = torch.tensor([[192., 250.]]), torch.ones(1, 4)
+    with torch.no_grad():
+        for fc, fg in zip(cpu.extract_feat(img),
+                          gpu.extract_feat(img.to(cuda))):
+            scale = fc.abs().max().item()
+            assert (fg.cpu() - fc).abs().max().item() <= 1e-4 * scale
+    want = cpu.simple_test(img, shapes, scales)
+    a0, r0 = fa.launches, ra.launches
+    got = [t.cpu() for t in gpu.simple_test(img.to(cuda), shapes.to(cuda),
+                                            scales.to(cuda))]
+    assert fa.launches == a0 + 1 and ra.launches == r0 + 1
+    # every CPU detection has a card detection of its label with IoU > 0.7
+    # and a score within 1e-2 (the rule of tests/test_e2e_parity_arfe.py)
+    wd, wl = want[0][0][want[2][0]], want[1][0][want[2][0]]
+    gd, gl = got[0][0][got[2][0]], got[1][0][got[2][0]]
+    assert len(wd) >= 5 and len(gd) == len(wd)
+    iou = bbox_overlaps(wd[:, :4], gd[:, :4])
+    close = (iou > 0.7) & (wl[:, None] == gl[None]) \
+        & ((wd[:, None, 4] - gd[None, :, 4]).abs() < 1e-2)
+    assert bool(close.any(dim=1).all())

@@ -1,0 +1,37 @@
+"""The port stands alone: importing any of its modules, or ``chip_smoke``,
+loads no JAX and nothing of the JAX package; its entry point defaults to the
+card."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = '''
+import importlib, pkgutil, sys
+import arfe_tpu_torch, chip_smoke
+for m in pkgutil.walk_packages(arfe_tpu_torch.__path__, 'arfe_tpu_torch.'):
+    importlib.import_module(m.name)
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'arfe_tpu'))
+print('modules:', len(sys.modules), 'forbidden:', bad)
+sys.exit(1 if bad else 0)
+'''
+
+
+def test_import_loads_no_jax():
+    proc = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_init_detector_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    from arfe_tpu_torch.apis import init_detector
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        init_detector(os.path.join(REPO, 'configs', '_base_', 'models',
+                                   'faster_rcnn_r50_arfpn.py'))
