@@ -1,4 +1,4 @@
-"""Detector construction for serving (counterpart of
+"""Detector construction for serving and training (counterpart of
 ``arfe_tpu/apis/inference.py:37-61``).
 
 :func:`init_detector` returns the detector ``nn.Module`` itself, in eval
@@ -26,7 +26,7 @@ def load_state_dict_file(path):
             if not k.endswith('num_batches_tracked')}
 
 
-def init_detector(config, checkpoint=None, device=None):
+def init_detector(config, checkpoint=None, device=None, train=False):
     """Build a detector from a config (path or :class:`Config`).
 
     Args:
@@ -35,6 +35,8 @@ def init_detector(config, checkpoint=None, device=None):
             ``torch.Generator`` seeded with 0.
         device: ``None`` means ``'cuda'``, which raises where there is no
             card; tests pass ``'cpu'``.
+        train: build the heads with the config's ``train_cfg`` (assigners,
+            samplers), for ``forward_train`` and ``train.make_train_step``.
     """
     device = torch.device('cuda' if device is None else device)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -45,7 +47,9 @@ def init_detector(config, checkpoint=None, device=None):
     cfg = config.todict()
     model_cfg = dict(cfg['model'])
     model_cfg.pop('pretrained', None)
-    model = build_detector(model_cfg, test_cfg=cfg.get('test_cfg'))
+    model = build_detector(model_cfg,
+                           train_cfg=cfg.get('train_cfg') if train else None,
+                           test_cfg=cfg.get('test_cfg'))
     if checkpoint is not None:
         model.load_state_dict(load_state_dict_file(checkpoint), strict=True)
     else:

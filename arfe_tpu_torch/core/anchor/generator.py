@@ -72,3 +72,18 @@ class AnchorGenerator:
             out.append((base[None] + shifts[:, None]).reshape(-1, 4)
                        .astype(np.float32))
         return out
+
+    def valid_flags(self, featmap_sizes, pad_shape):
+        """Per level an (H*W*A,) bool array: anchors whose grid cell lies
+        inside the ``pad_shape`` (h, w) image, in the order of
+        :meth:`grid_anchors`."""
+        flags = []
+        for (feat_h, feat_w), (sw, sh), num in zip(
+                featmap_sizes, self.strides, self.num_base_anchors):
+            valid_h = min(int(np.ceil(pad_shape[0] / sh)), feat_h)
+            valid_w = min(int(np.ceil(pad_shape[1] / sw)), feat_w)
+            vx = np.arange(feat_w) < valid_w
+            vy = np.arange(feat_h) < valid_h
+            valid = np.tile(vx, feat_h) & np.repeat(vy, feat_w)
+            flags.append(np.repeat(valid, num))
+        return flags

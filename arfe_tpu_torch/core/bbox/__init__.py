@@ -1,5 +1,8 @@
-from .coder import DeltaXYWHBBoxCoder, delta2bbox
+from .assigners import MaxIoUAssigner
+from .coder import DeltaXYWHBBoxCoder, bbox2delta, delta2bbox
 from .iou import bbox_overlaps
+from .samplers import RandomSampler
 from .transforms import bbox2result
 
-__all__ = ['DeltaXYWHBBoxCoder', 'delta2bbox', 'bbox_overlaps', 'bbox2result']
+__all__ = ['DeltaXYWHBBoxCoder', 'MaxIoUAssigner', 'RandomSampler',
+           'bbox2delta', 'bbox2result', 'bbox_overlaps', 'delta2bbox']

@@ -1,11 +1,32 @@
-"""Delta (dx, dy, dw, dh) box coder, decoding only (counterpart of
-``arfe_tpu/core/bbox/coder.py:43-100``)."""
+"""Delta (dx, dy, dw, dh) box coder (counterpart of
+``arfe_tpu/core/bbox/coder.py:16-100``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ...registry import BBOX_CODERS
+
+
+def bbox2delta(proposals, gt, means=(0., 0., 0., 0.), stds=(1., 1., 1., 1.)):
+    """Encode gt boxes (..., 4) as f32 deltas against proposals (..., 4);
+    zero widths and heights are floored at 1e-6 so padded rows stay finite."""
+    proposals = proposals.float()
+    gt = gt.float()
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = torch.clamp(proposals[..., 2] - proposals[..., 0], min=1e-6)
+    ph = torch.clamp(proposals[..., 3] - proposals[..., 1], min=1e-6)
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+    dx = (gx - px) / pw
+    dy = (gy - py) / ph
+    dw = torch.log(torch.clamp(gw, min=1e-6) / pw)
+    dh = torch.log(torch.clamp(gh, min=1e-6) / ph)
+    deltas = torch.stack([dx, dy, dw, dh], dim=-1)
+    return (deltas - deltas.new_tensor(means)) / deltas.new_tensor(stds)
 
 
 def delta2bbox(rois, deltas, means=(0., 0., 0., 0.), stds=(1., 1., 1., 1.),
@@ -56,6 +77,9 @@ class DeltaXYWHBBoxCoder:
                  target_stds=(1., 1., 1., 1.)):
         self.means = tuple(target_means)
         self.stds = tuple(target_stds)
+
+    def encode(self, bboxes, gt_bboxes):
+        return bbox2delta(bboxes, gt_bboxes, self.means, self.stds)
 
     def decode(self, bboxes, pred_bboxes, max_shape=None,
                wh_ratio_clip=16 / 1000):

@@ -19,7 +19,8 @@
 //
 // Design: one block per RoI. The block first computes its 2 * 7 * sn
 // per-axis sample parameters (corner rows / columns, weights, validity) into
-// shared memory, once, instead of once per channel. Then its threads walk the
+// shared memory, once, instead of once per channel, with the code that the
+// gradient kernel (roi_align_bwd.cu) shares (roi_align_common.cuh). Then its threads walk the
 // (bin, channel) output elements with the channel fastest: features are
 // NHWC, so the 32 lanes of a warp read 32 neighbouring channels of one pixel
 // (coalesced) and write 32 neighbouring outputs. Corner reads go straight to
@@ -29,18 +30,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "roi_align_common.cuh"
+
 namespace {
 
-constexpr int MAX_LEVELS = 4;
 constexpr int THREADS = 256;
-
-struct Levels {
-  const void* data[MAX_LEVELS];  // (batch, h, w, channels) NHWC, contiguous
-  int h[MAX_LEVELS];
-  int w[MAX_LEVELS];
-  float scale[MAX_LEVELS];       // 1 / stride, as f32
-  int num;
-};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -49,52 +43,27 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-roi_align_kernel(Levels lv, const float* __restrict__ rois,
+roi_align_kernel(arfe::Levels lv, const float* __restrict__ rois,
                  const int* __restrict__ target_lvls, T* __restrict__ out,
                  int batch, int channels, int out_h, int out_w, int sn,
                  int aligned) {
-  extern __shared__ __align__(16) int sparams[];
-  const int ny = out_h * sn, nx = out_w * sn, ns = ny + nx;
-  // per sample s (y samples first, then x samples): corner indices i0, i1,
-  // weights w0, w1, validity
-  int* i0s = sparams;
-  int* i1s = i0s + ns;
-  float* w0s = reinterpret_cast<float*>(i1s + ns);
-  float* w1s = w0s + ns;
-  int* vs = reinterpret_cast<int*>(w1s + ns);
+  extern __shared__ __align__(16) int smem[];
+  const int ny = out_h * sn, ns = (out_h + out_w) * sn;
+  const arfe::AxisTables tab = arfe::axis_tables(smem, ns);
+  const int* i0s = tab.i0;
+  const int* i1s = tab.i1;
+  const float* w0s = tab.w0;
+  const float* w1s = tab.w1;
+  const int* vs = tab.valid;
 
   const int r = blockIdx.x;
   const float* roi = rois + (size_t)r * 5;
-  const int l = min(max(target_lvls[r], 0), lv.num - 1);
-  const int b = min(max((int)roi[0], 0), batch - 1);  // (int) truncates, as astype does
+  const int l = arfe::roi_level(target_lvls, r, lv.num);
+  const int b = arfe::roi_batch(roi, batch);
   const int h = lv.h[l], w = lv.w[l];
-
-  if (threadIdx.x < ns) {
-    const int t = threadIdx.x;
-    const bool is_y = t < ny;
-    const int s = is_y ? t : t - ny;
-    const float sc = lv.scale[l];
-    const float off = aligned ? 0.5f : 0.f;
-    // roi corners in level coordinates: x1, y1, x2, y2
-    const float lo = __fsub_rn(__fmul_rn(roi[is_y ? 2 : 1], sc), off);
-    const float hi = __fsub_rn(__fmul_rn(roi[is_y ? 4 : 3], sc), off);
-    float extent = __fsub_rn(hi, lo);
-    if (!aligned) extent = fmaxf(extent, 1.f);
-    const float bin = __fdiv_rn(extent, (float)(is_y ? out_h : out_w));
-    // sample s of bin s / sn sits at (s / sn) + ((s % sn) + 0.5) / sn bins
-    const float frac = (float)((double)(s / sn) + ((double)(s % sn) + 0.5) / (double)sn);
-    const float coord = __fadd_rn(lo, __fmul_rn(frac, bin));
-    const int size = is_y ? h : w;
-    const float fsize = (float)size;
-    const float c = fminf(fmaxf(coord, 0.f), __fsub_rn(fsize, 1.f));
-    const int i0 = (int)floorf(c);
-    const float w1 = __fsub_rn(c, (float)i0);
-    i0s[t] = i0;
-    i1s[t] = min(i0 + 1, size - 1);
-    w0s[t] = __fsub_rn(1.f, w1);
-    w1s[t] = w1;
-    vs[t] = coord > -1.f && coord < fsize;
-  }
+  if (threadIdx.x < ns)
+    arfe::fill_axis_sample(tab, threadIdx.x, roi, lv.scale[l], h, w, out_h,
+                           out_w, sn, aligned);
   __syncthreads();
 
   const T* feat = static_cast<const T*>(lv.data[l]) + (size_t)b * h * w * channels;
@@ -129,12 +98,12 @@ roi_align_kernel(Levels lv, const float* __restrict__ rois,
 }
 
 template <typename T>
-cudaError_t launch(const Levels& lv, const float* rois, const int* lvls, void* out,
+cudaError_t launch(const arfe::Levels& lv, const float* rois, const int* lvls, void* out,
                    int num_rois, int batch, int channels, int out_h, int out_w,
                    int sn, int aligned, cudaStream_t stream) {
   const int ns = (out_h + out_w) * sn;
   if (ns > THREADS) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)ns * 5 * sizeof(int);
+  const size_t smem = arfe::axis_tables_bytes(ns);
   roi_align_kernel<T><<<num_rois, THREADS, smem, stream>>>(
       lv, rois, lvls, static_cast<T*>(out), batch, channels, out_h, out_w, sn, aligned);
   return cudaGetLastError();
@@ -152,17 +121,12 @@ extern "C" int arfe_roi_align_forward(
     const float* level_scale, int num_levels, int batch, int channels,
     const void* rois, const void* target_lvls, void* out, int num_rois,
     int out_h, int out_w, int sample_num, int aligned, int is_bf16, void* stream) {
-  if (num_levels < 1 || num_levels > MAX_LEVELS || sample_num < 1) return (int)cudaErrorInvalidValue;
+  if (num_levels < 1 || num_levels > arfe::MAX_LEVELS || sample_num < 1)
+    return (int)cudaErrorInvalidValue;
   if (num_rois <= 0) return (int)cudaSuccess;
-  Levels lv;
-  lv.num = num_levels;
-  for (int i = 0; i < MAX_LEVELS; ++i) {
-    const int j = i < num_levels ? i : 0;
-    lv.data[i] = level_data[j];
-    lv.h[i] = level_h[j];
-    lv.w[i] = level_w[j];
-    lv.scale[i] = level_scale[j];
-  }
+  const arfe::Levels lv = arfe::make_levels(const_cast<void* const*>(level_data),
+                                            level_h, level_w, level_scale,
+                                            num_levels);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rois);
   const int* t = static_cast<const int*>(target_lvls);

@@ -3,8 +3,11 @@
 
 Parameter names follow torchvision / mmdet (``conv1``, ``bn1``,
 ``layer{1..4}.{i}``, ``downsample.0/1``). BatchNorm is always in frozen
-(``norm_eval``) form; ``norm_cfg``, ``frozen_stages`` (training only) and
-``zero_init_residual`` are accepted for the configs and unused. The TPU-only ``stem_space_to_depth`` key is
+(``norm_eval``) form: its statistics never change, its affine weight and bias
+train. ``frozen_stages = k`` stops the gradient of the stem and of stages
+1..k (``requires_grad`` off), as the JAX package's ``stop_gradient``
+(``resnet.py:316-330``). ``norm_cfg`` and ``zero_init_residual`` are accepted
+for the configs and unused. The TPU-only ``stem_space_to_depth`` key is
 accepted and ignored: the plain 7x7 stem computes the same numbers.
 """
 from __future__ import annotations
@@ -112,6 +115,12 @@ class ResNet(nn.Module):
                                         downsample=need_ds))
                 inplanes = planes * block_cls.expansion
             setattr(self, f'layer{i + 1}', nn.Sequential(*blocks))
+        self.frozen_stages = frozen_stages
+        if frozen_stages >= 0:
+            for m in [self.conv1, self.bn1] + [
+                    getattr(self, f'layer{i}')
+                    for i in range(1, frozen_stages + 1)]:
+                m.requires_grad_(False)
 
     def forward(self, x):
         x = torch.relu(self.bn1(self.conv1(x)))

@@ -1,7 +1,12 @@
-"""RPN head, proposal path (counterpart of
-``arfe_tpu/models/dense_heads/rpn_head.py:20-50,156-302``).
+"""RPN head: proposals and training loss (counterpart of
+``arfe_tpu/models/dense_heads/rpn_head.py:20-50,71-109,156-302``).
 
-Per level: shared 3x3 conv + relu, 1x1 cls / reg convs read channel-major,
+The loss reads the 1x1 cls / reg outputs of the shared features in the
+(anchor, position) candidate order of the proposals, with the anchor table
+in the same order, and returns ``loss_rpn_cls`` / ``loss_rpn_bbox``.
+
+Proposals, per level: shared 3x3 conv + relu, 1x1 cls / reg convs read
+channel-major,
 so candidates are in (anchor, position) order; top ``nms_pre`` by logit
 (stable sort: ties keep that order, as ``jax.lax.top_k`` does); decode,
 clamp to the image, min-size filter; NMS per (image, level), which with
@@ -29,7 +34,7 @@ def _stable_topk(x, k):
 @HEADS.register_module()
 class RPNHead(AnchorHead):
     def __init__(self, in_channels, **kwargs):
-        super().__init__(1, in_channels, **kwargs)
+        super().__init__(1, in_channels, background_label=0, **kwargs)
 
     def _init_layers(self):
         self.rpn_conv = Conv2d(self.in_channels, self.feat_channels, 3,
@@ -43,28 +48,61 @@ class RPNHead(AnchorHead):
     def shared_single(self, x):
         return torch.relu(self.rpn_conv(x))
 
-    def get_proposals(self, feats, img_shapes, cfg=None):
+    def _heads(self, shared):
+        """The 1x1 cls / reg outputs of a shared feature (B, C, H, W), in
+        f32, as (B, A, co, H*W) and (B, A, 4, H*W)."""
+        b, _, h, w = shared.shape
+        num_a = self.num_anchors
+        return (self.rpn_cls(shared).float().reshape(b, num_a, -1, h * w),
+                self.rpn_reg(shared).float().reshape(b, num_a, 4, h * w))
+
+    def loss_from_shared(self, shared, gt_bboxes, gt_valid, img_shapes, gen):
+        """RPN losses from the per-level shared features (B, C, H, W).
+
+        Args:
+            gt_bboxes: (B, G, 4) padded; gt_valid (B, G); img_shapes (B, 2).
+            gen: the ``torch.Generator`` of the sampler's priorities.
+        """
+        featmap_sizes = [tuple(x.shape[2:]) for x in shared]
+        anchors, flags = self._flat_anchor_table(featmap_sizes,
+                                                 shared[0].device)
+        cls_l, box_l = [], []
+        for x in shared:
+            cls_t, reg_t = self._heads(x)
+            b = x.shape[0]
+            cls_l.append(cls_t.transpose(2, 3).reshape(
+                b, -1, self.cls_out_channels))
+            box_l.append(reg_t.transpose(2, 3).reshape(b, -1, 4))
+        losses = self._loss_from_flat(
+            anchors, flags, torch.cat(cls_l, 1), torch.cat(box_l, 1),
+            gt_bboxes, gt_valid, None, img_shapes, gen)
+        return dict(loss_rpn_cls=losses['loss_cls'],
+                    loss_rpn_bbox=losses['loss_bbox'])
+
+    def get_proposals(self, feats, img_shapes, cfg=None, shared=None):
         """Proposals of each image.
 
         Args:
             feats: per-level (B, C, H, W) features.
             img_shapes: (B, 2) f32 (h, w) of the image content.
+            shared: optional per-level ``shared_single`` outputs, computed
+                here from ``feats`` when not given.
         Returns:
             proposals (B, nms_post, 5) [x1, y1, x2, y2, score] padded with
             [0, 0, 0, 0, -1], and their (B, nms_post) validity.
         """
         cfg = self.test_cfg if cfg is None else cfg
+        if shared is None:
+            shared = [self.shared_single(x) for x in feats]
         mlvl_anchors = self.anchor_generator.grid_anchors(
-            [tuple(f.shape[2:]) for f in feats])
+            [tuple(x.shape[2:]) for x in shared])
         nms_pre = cfg.get('nms_pre', -1)
         num_a = self.num_anchors
         scores_l, preds_l, anchors_l = [], [], []
-        for x, anchors in zip(feats, mlvl_anchors):
-            shared = self.shared_single(x)
-            b, _, h, w = shared.shape
+        for x, anchors in zip(shared, mlvl_anchors):
+            b, _, h, w = x.shape
             hw = h * w
-            cls_t = self.rpn_cls(shared).float().reshape(b, -1, hw)
-            reg_t = self.rpn_reg(shared).float().reshape(b, num_a, 4, hw)
+            cls_t, reg_t = self._heads(x)
             if self.use_sigmoid_cls:
                 logits = cls_t.reshape(b, num_a * hw)
             else:

@@ -1,4 +1,4 @@
-"""Two-stage detector, inference (counterpart of
+"""Two-stage detector: inference and training losses (counterpart of
 ``arfe_tpu/models/detectors/two_stage.py:11-121,155-157``)."""
 from __future__ import annotations
 
@@ -14,21 +14,54 @@ class TwoStageDetector(nn.Module):
     def __init__(self, backbone, neck=None, rpn_head=None, roi_head=None,
                  train_cfg=None, test_cfg=None, pretrained=None):
         super().__init__()
-        test_cfg = test_cfg or {}
+        self.train_cfg = train_cfg or {}
+        self.test_cfg = test_cfg or {}
         self.backbone = build_backbone(backbone)
         self.neck = build_neck(neck) if neck is not None else None
         if rpn_head is None:
             raise NotImplementedError('detectors without an RPN head take '
                                       'external proposals: not ported')
-        self.rpn_head = build_head(dict(rpn_head, train_cfg=None,
-                                        test_cfg=test_cfg.get('rpn')))
-        self.roi_head = build_head(dict(roi_head, train_cfg=None,
-                                        test_cfg=test_cfg.get('rcnn')))
+        self.rpn_head = build_head(dict(
+            rpn_head, train_cfg=self.train_cfg.get('rpn'),
+            test_cfg=self.test_cfg.get('rpn')))
+        self.roi_head = build_head(dict(
+            roi_head, train_cfg=self.train_cfg.get('rcnn'),
+            test_cfg=self.test_cfg.get('rcnn')))
 
     def extract_feat(self, img):
         """NHWC images (B, H, W, 3) -> per-level NCHW features."""
         x = self.backbone(img.permute(0, 3, 1, 2))
         return x if self.neck is None else self.neck(x)
+
+    def forward_train(self, img, img_shapes, gt_bboxes, gt_valid, gt_labels,
+                      gen):
+        """Training losses of a batch.
+
+        Args:
+            img: (B, H, W, 3) images, f32 or bf16, on the model's device.
+            img_shapes: (B, 2) f32 (h, w) of each image's content.
+            gt_bboxes: (B, G, 4) f32 padded; gt_valid (B, G) bool;
+                gt_labels (B, G) int.
+            gen: ``torch.Generator`` on the model's device, for sampling.
+        Returns:
+            dict of ``loss_rpn_cls``, ``loss_rpn_bbox``, ``loss_cls``,
+            ``acc`` and ``loss_bbox``.
+        """
+        x = self.extract_feat(img)
+        shared = [self.rpn_head.shared_single(f) for f in x]
+        losses = self.rpn_head.loss_from_shared(shared, gt_bboxes, gt_valid,
+                                                img_shapes, gen)
+        # proposals from the detached shared features: no gradient flows
+        # through them
+        with torch.no_grad():
+            props, prop_valid = self.rpn_head.get_proposals(
+                x, img_shapes,
+                cfg=self.train_cfg.get('rpn_proposal')
+                or self.test_cfg.get('rpn'),
+                shared=[s.detach() for s in shared])
+        losses.update(self.roi_head.forward_train(
+            x, props, prop_valid, gt_bboxes, gt_valid, gt_labels, gen))
+        return losses
 
     @torch.inference_mode()
     def simple_test(self, img, img_shapes, scale_factors, rescale=False):

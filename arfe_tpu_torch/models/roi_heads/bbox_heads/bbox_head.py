@@ -1,8 +1,8 @@
-"""Two-stage bbox heads, inference (counterpart of
-``arfe_tpu/models/roi_heads/bbox_heads/bbox_head.py:23-127,194-312``):
-``BBoxHead``, ``ConvFCBBoxHead`` and ``Shared2FCBBoxHead``. RoI features
-are flattened in torch's (C, H, W) order, so FC weights are the reference's.
-``loss_*`` cfgs are accepted and unused.
+"""Two-stage bbox heads (counterpart of
+``arfe_tpu/models/roi_heads/bbox_heads/bbox_head.py:23-180,194-312``):
+``BBoxHead``, ``ConvFCBBoxHead`` and ``Shared2FCBBoxHead``, with the
+training targets and losses. RoI features are flattened in torch's
+(C, H, W) order, so FC weights are the reference's.
 """
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ from torch import nn
 
 from ....core.post.bbox_nms import multiclass_nms
 from ....layers import ConvModule, Linear
-from ....registry import BBOX_CODERS, HEADS, build_from_cfg
+from ....registry import BBOX_CODERS, HEADS, LOSSES, build_from_cfg
+from ...losses import accuracy
 
 
 def _flatten_nchw(x):
@@ -42,6 +43,11 @@ class BBoxHead(nn.Module):
         self.bbox_coder = build_from_cfg(bbox_coder or dict(
             type='DeltaXYWHBBoxCoder', target_means=[0., 0., 0., 0.],
             target_stds=[0.1, 0.1, 0.2, 0.2]), BBOX_CODERS)
+        self.loss_cls = build_from_cfg(loss_cls or dict(
+            type='CrossEntropyLoss', use_sigmoid=False, loss_weight=1.0),
+            LOSSES)
+        self.loss_bbox = build_from_cfg(loss_bbox or dict(
+            type='SmoothL1Loss', beta=1.0, loss_weight=1.0), LOSSES)
         self._init_layers()
 
     def _init_layers(self):
@@ -93,6 +99,44 @@ class BBoxHead(nn.Module):
                               cfg['max_per_img'],
                               pre_nms_cap=cfg.get('nms_cap', 2000),
                               valid_mask=valid_mask)
+
+    def get_targets(self, sampled_boxes, sampled_gt_boxes, sampled_labels,
+                    is_pos, valid, pos_weight=-1):
+        """Targets of the sampled RoIs (..., S): labels (background
+        ``num_classes`` where not positive), label_weights (0 on invalid
+        slots), bbox_targets (..., S, 4) and bbox_weights (..., S, 4)."""
+        labels = torch.where(is_pos, sampled_labels.long(), self.num_classes)
+        pw = 1.0 if pos_weight <= 0 else pos_weight
+        label_weights = torch.where(valid, torch.where(is_pos, pw, 1.0), 0.0)
+        targets = self.bbox_coder.encode(sampled_boxes, sampled_gt_boxes)
+        bbox_targets = torch.where(is_pos[..., None], targets, 0.0)
+        bbox_weights = is_pos[..., None].expand(targets.shape).float()
+        return labels, label_weights, bbox_targets, bbox_weights
+
+    def loss(self, cls_score, bbox_pred, labels, label_weights, bbox_targets,
+             bbox_weights):
+        """``loss_cls``, ``acc`` (over the weighted slots) and ``loss_bbox``
+        (averaged over all slots) of inputs flattened over the batch."""
+        losses = {}
+        if cls_score is not None:
+            cls_score = cls_score.float()
+            avg_factor = torch.clamp(label_weights.sum(), min=1.0)
+            losses['loss_cls'] = self.loss_cls(cls_score, labels,
+                                               label_weights,
+                                               avg_factor=avg_factor)
+            losses['acc'] = accuracy(cls_score, labels,
+                                     valid_mask=label_weights > 0)
+        if bbox_pred is not None:
+            pred = bbox_pred.float()
+            if not self.reg_class_agnostic:
+                safe = torch.clamp(labels, 0, self.num_classes - 1)
+                inds = 4 * safe[:, None] + torch.arange(4,
+                                                        device=safe.device)
+                pred = torch.gather(pred, 1, inds)
+            losses['loss_bbox'] = self.loss_bbox(
+                pred, bbox_targets, bbox_weights,
+                avg_factor=float(bbox_targets.shape[0]))
+        return losses
 
 
 @HEADS.register_module()

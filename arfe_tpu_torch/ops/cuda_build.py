@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` at the repository
-root, where ``<hash>`` covers the source and the flags, then loaded with
-``ctypes``. Nothing is built at import: the first wrapper call builds its own
-library, and :func:`build` starts several ``nvcc`` processes at once.
+root, where ``<hash>`` covers the source, the headers and the flags, then
+loaded with ``ctypes``. Nothing is built at import: the first wrapper call
+builds its own library, and :func:`build` starts several ``nvcc`` processes
+at once.
 """
 from __future__ import annotations
 
@@ -36,10 +37,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'{name}-{digest}.so'
+    """The library's path; its hash covers the source, every header of
+    ``csrc/`` and the flags."""
+    digest = hashlib.sha256()
+    for path in [CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))]:
+        digest.update(path.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'{name}-{digest.hexdigest()[:16]}.so'
 
 
 def build(names) -> dict[str, str]:

@@ -1,10 +1,14 @@
 """Fused softmax attention: ``softmax(q @ k^T * scale) @ v`` with f32 output.
 
-Counterpart of ``arfe_tpu/ops/pallas_attention.py``. On a CUDA tensor
-:func:`fused_softmax_attention` launches the hand-written kernel in
-``csrc/fused_attention.cu``; on a CPU tensor it runs
+Counterpart of ``arfe_tpu/ops/pallas_attention.py``
+(``attention_auto``). :func:`fused_softmax_attention` runs
+:class:`AttentionFunction`: on a CUDA tensor its forward launches the
+hand-written kernel in ``csrc/fused_attention.cu``; on a CPU tensor it runs
 :func:`attention_plain`, the plain PyTorch version the kernel is held
-against. There is no fallback from one to the other.
+against. There is no fallback from one to the other. The backward is the
+VJP of :func:`attention_plain`, as the JAX package's is the VJP of its XLA
+version (``pallas_attention.py:141-145``): there is no backward kernel to
+port.
 """
 from __future__ import annotations
 
@@ -75,12 +79,33 @@ def fused_attention_cuda(q, k, v, scale=None):
     return out
 
 
+class AttentionFunction(torch.autograd.Function):
+    """``apply(q, k, v, scale)``. Forward: the kernel on CUDA,
+    :func:`attention_plain` on the CPU. Backward: recomputes
+    :func:`attention_plain` under autograd and takes its VJP; the gradients
+    come in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if q.device.type == 'cpu':
+            return attention_plain(q, k, v, scale)
+        return fused_attention_cuda(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_plain(*inputs, ctx.scale)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None)
+
+
 def fused_softmax_attention(q, k, v, scale=None):
     """``softmax(q @ k^T * scale) @ v`` over (B, N, C); returns f32 (B, N, C).
 
     A CPU tensor takes :func:`attention_plain`; a CUDA tensor the kernel.
-    ``scale=None`` leaves the logits unscaled.
+    ``scale=None`` leaves the logits unscaled. Differentiable in q, k, v.
     """
-    if q.device.type == 'cpu':
-        return attention_plain(q, k, v, scale)
-    return fused_attention_cuda(q, k, v, scale)
+    return AttentionFunction.apply(q, k, v, scale)

@@ -1,12 +1,16 @@
-"""FPN RoIAlign forward (detectron2-aligned), NHWC features.
+"""FPN RoIAlign (detectron2-aligned) over NHWC levels, and its gradient.
 
 Counterpart of ``arfe_tpu/ops/roi_align.py`` (``map_roi_levels``,
-``roi_align_pyramid``) and of the Pallas kernel
-``arfe_tpu/ops/pallas_roi_align.py::roi_align_pallas``. On CUDA tensors
-:func:`roi_align_pyramid` launches the hand-written kernel in
-``csrc/roi_align.cu``; on CPU tensors it runs
-:func:`roi_align_pyramid_plain`, the plain PyTorch version the kernel is held
-against. There is no fallback from one to the other.
+``roi_align_pyramid``) and of the Pallas kernels
+``arfe_tpu/ops/pallas_roi_align.py::roi_align_pallas`` and
+``roi_align_pallas_bwd``. :func:`roi_align_pyramid` runs
+:class:`RoIAlignFunction`: on CUDA tensors its forward launches the
+hand-written kernel in ``csrc/roi_align.cu`` and its backward the one in
+``csrc/roi_align_bwd.cu``; on CPU tensors they run
+:func:`roi_align_pyramid_plain` and :func:`roi_align_backward_plain`, the
+plain PyTorch versions the kernels are held against. There is no fallback
+from one to the other. As in the JAX package's VJP
+(``pallas_roi_align.py:407-435``), the RoIs get no gradient.
 
 ``sample_num=0`` (the reference's adaptive sampling) is replaced by a fixed
 2 x 2 grid per bin, as in the JAX package.
@@ -20,8 +24,10 @@ import torch
 
 from .cuda_build import library
 
-#: kernel launches since the last reset (``launches = 0``)
+#: forward kernel launches since the last reset (``launches = 0``)
 launches = 0
+#: gradient kernel launches since the last reset (``bwd_launches = 0``)
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_LEVELS = 4
@@ -142,6 +148,39 @@ def roi_align_pyramid_plain(feats, rois, target_lvls, out_size=(7, 7),
     return out.to(feats[0].dtype)
 
 
+def roi_align_backward_plain(g, rois, target_lvls, level_shapes,
+                             out_size=(7, 7), featmap_strides=(4, 8, 16, 32),
+                             sample_num=2, aligned=True):
+    """Feature gradient of :func:`roi_align_pyramid_plain`, written out as
+    its transpose; the gradient kernel's reference.
+
+    Args:
+        g: (R, oh, ow, C) cotangent of the output.
+        level_shapes: the (B, Hl, Wl, ...) of each level.
+    Returns:
+        one (B, Hl, Wl, C) f32 gradient per level: ``g / sn^2`` times each
+        corner weight, added with ``index_add_`` into the levels packed as
+        (sum B*Hl*Wl, C).
+    """
+    oh, ow = out_size
+    sn = sample_num
+    r, c = g.shape[0], g.shape[-1]
+    shapes = [tuple(s[:3]) for s in level_shapes]
+    corners, _ = sample_corners(shapes, rois, target_lvls, out_size,
+                                featmap_strides, sn, aligned)
+    # each bin's cotangent, once per sample of the bin, in sample order
+    gs = g.float() / torch.full((), float(sn * sn), device=g.device)
+    gs = gs.reshape(r, oh, 1, ow, 1, c).expand(r, oh, sn, ow, sn, c) \
+        .reshape(-1, c)
+    sizes = [b * h * w for b, h, w in shapes]
+    table = torch.zeros((sum(sizes), c), dtype=torch.float32,
+                        device=g.device)
+    for idx, wgt in corners:
+        table.index_add_(0, idx.reshape(-1), gs * wgt.reshape(-1, 1))
+    return [t.reshape(b, h, w, c)
+            for t, (b, h, w) in zip(table.split(sizes), shapes)]
+
+
 def _lib():
     lib = library('roi_align')
     fn = lib.arfe_roi_align_forward
@@ -201,18 +240,108 @@ def roi_align_cuda(feats, rois, target_lvls, out_size=(7, 7),
     return out
 
 
+def _bwd_lib():
+    lib = library('roi_align_bwd')
+    fn = lib.arfe_roi_align_backward
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def roi_align_backward_cuda(g, rois, target_lvls, level_shapes,
+                            out_size=(7, 7), featmap_strides=(4, 8, 16, 32),
+                            sample_num=2, aligned=True):
+    """Launch the gradient kernel; arguments and result as
+    :func:`roi_align_backward_plain`, with ``g`` a contiguous f32 CUDA
+    tensor. The f32 gradient levels are zero-filled here."""
+    global bwd_launches
+    dev = rois.device
+    num = len(level_shapes)
+    if not 1 <= num <= _MAX_LEVELS or num != len(featmap_strides):
+        raise ValueError(f'roi_align_backward: {num} levels for '
+                         f'{len(featmap_strides)} strides (at most '
+                         f'{_MAX_LEVELS})')
+    if dev.type != 'cuda' or rois.dtype != torch.float32 or rois.dim() != 2 \
+            or rois.shape[1] != 5 or not rois.is_contiguous():
+        raise ValueError('roi_align_backward: rois must be a contiguous '
+                         '(R, 5) f32 CUDA tensor')
+    r = rois.shape[0]
+    oh, ow = out_size
+    if g.device != dev or g.dtype != torch.float32 or g.dim() != 4 \
+            or g.shape[:3] != (r, oh, ow) or not g.is_contiguous():
+        raise ValueError(f'roi_align_backward: the cotangent must be a '
+                         f'contiguous ({r}, {oh}, {ow}, C) f32 tensor on '
+                         'the RoIs\' device')
+    if target_lvls.device != dev or target_lvls.dtype != torch.int32 \
+            or target_lvls.shape != (r,) or not target_lvls.is_contiguous():
+        raise ValueError('roi_align_backward: target_lvls must be a '
+                         'contiguous (R,) int32 tensor on the RoIs\' device')
+    c = g.shape[3]
+    b = level_shapes[0][0]
+    grads = [torch.zeros((b, s[1], s[2], c), dtype=torch.float32, device=dev)
+             for s in level_shapes]
+    ptrs = (ctypes.c_void_p * num)(*[t.data_ptr() for t in grads])
+    hs = (ctypes.c_int * num)(*[t.shape[1] for t in grads])
+    ws = (ctypes.c_int * num)(*[t.shape[2] for t in grads])
+    scales = (ctypes.c_float * num)(*_level_scales(featmap_strides).tolist())
+    fn = _bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(ptrs, hs, ws, scales, num, b, c, g.data_ptr(),
+                 rois.data_ptr(), target_lvls.data_ptr(), r, oh, ow,
+                 sample_num, int(aligned), stream)
+    if err:
+        raise RuntimeError(f'roi_align backward kernel launch failed: CUDA '
+                           f'error {err}')
+    bwd_launches += 1
+    return grads
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """RoIAlign with a gradient for the feature levels only.
+
+    ``apply(rois, target_lvls, out_size, featmap_strides, sample_num,
+    aligned, *feats)``. Forward: kernel B on CUDA, the plain version on the
+    CPU. Backward: kernel C on CUDA, :func:`roi_align_backward_plain` on the
+    CPU, from the f32 cotangent; each level's gradient is returned in that
+    level's dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, rois, target_lvls, out_size, featmap_strides,
+                sample_num, aligned, *feats):
+        ctx.save_for_backward(rois, target_lvls)
+        ctx.args = (out_size, featmap_strides, sample_num, aligned)
+        ctx.levels = [(f.shape, f.dtype) for f in feats]
+        fn = roi_align_pyramid_plain if rois.device.type == 'cpu' \
+            else roi_align_cuda
+        return fn(list(feats), rois, target_lvls, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        rois, target_lvls = ctx.saved_tensors
+        fn = roi_align_backward_plain if rois.device.type == 'cpu' \
+            else roi_align_backward_cuda
+        grads = fn(g.float().contiguous(), rois, target_lvls,
+                   [shape for shape, _ in ctx.levels], *ctx.args)
+        return (None,) * 6 + tuple(
+            d.to(dtype) for d, (_, dtype) in zip(grads, ctx.levels))
+
+
 def roi_align_pyramid(feats, rois, target_lvls, out_size=(7, 7),
                       featmap_strides=(4, 8, 16, 32), sample_num=2,
                       aligned=True):
     """RoIAlign of each RoI on its level ``target_lvls[r]``.
 
-    A CPU tensor takes :func:`roi_align_pyramid_plain`; a CUDA tensor the
-    kernel. ``sample_num <= 0`` means 2.
+    Runs :class:`RoIAlignFunction`: the kernels on CUDA tensors, the plain
+    versions on CPU tensors; gradients reach the levels, not the RoIs.
+    ``sample_num <= 0`` means 2.
     """
     if sample_num <= 0:
         sample_num = 2
-    feats = list(feats[:len(featmap_strides)])
-    fn = roi_align_pyramid_plain if rois.device.type == 'cpu' \
-        else roi_align_cuda
-    return fn(feats, rois, target_lvls, tuple(out_size),
-              tuple(featmap_strides), sample_num, aligned)
+    return RoIAlignFunction.apply(rois, target_lvls, tuple(out_size),
+                                  tuple(featmap_strides), sample_num, aligned,
+                                  *feats[:len(featmap_strides)])

@@ -1,7 +1,7 @@
 """String-keyed registries mapping config ``type='X'`` tags to constructors.
 
 The port's own copy of ``arfe_tpu/registry.py`` (the port imports nothing of
-the JAX package), with the registries the inference path uses.
+the JAX package), with the registries the inference and training paths use.
 """
 from __future__ import annotations
 
@@ -77,6 +77,10 @@ ROI_EXTRACTORS = Registry('roi_extractor')
 HEADS = Registry('head')
 DETECTORS = Registry('detector')
 
+LOSSES = Registry('loss')
+
 # Core registries
+BBOX_ASSIGNERS = Registry('bbox_assigner')
+BBOX_SAMPLERS = Registry('bbox_sampler')
 BBOX_CODERS = Registry('bbox_coder')
 ANCHOR_GENERATORS = Registry('anchor_generator')

@@ -6,39 +6,49 @@
    ``arfe_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
 2. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes, in f32 and bf16, and times kernel, plain version and
-   (where one exists) the PyTorch library call with CUDA events.
+   (where one exists) the PyTorch library call with CUDA events; checks the
+   gradients through the RoIAlign autograd Function (kernels B and C)
+   against the plain versions, and that the attention autograd Function
+   (kernel A, then the plain version's VJP) gives the plain gradients.
 3. Serves the flagship Faster R-CNN R50 + AR-FPN
    (``configs/_base_/models/faster_rcnn_r50_arfpn.py``) at full width on
    ``cuda`` with seeded random weights: four bs1 and two bs2 requests at
    800x1344 in bf16, and two bs1 requests in f32. Every request must launch
-   both kernels.
+   the attention and the RoIAlign forward kernels.
 4. Checks the served detector against the same weights on the CPU (plain
    path) on a small image.
+5. Trains the flagship at full width with the bench's SGD schedule and
+   synthetic batch (``bench.py:150-185``): four bs2 steps at 800x1344 in
+   bf16 and one in f32. Every step must launch all three kernels; the frozen
+   stem and layer1 must not move; every other tensor must move, unless its
+   gradient was exactly 0 in every step (those are named).
+6. Checks one f32 training step on the card against the same weights (the
+   trainer's seeded starting weights) and sampling priorities on the CPU
+   (plain path) on a small image: losses and gradients.
 
-Prints one JSON line of kernel numbers, then the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
-result line, if there is no CUDA device or any phase fails.
+Prints one JSON line of kernel numbers (``launches`` counts the training
+run, ``launches_serve`` the serving run), then the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
+non-zero, with no result line, if there is no CUDA device or any phase
+fails.
 """
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-REPO = os.path.dirname(os.path.abspath(__file__))
-FLAGSHIP_CFG = os.path.join(REPO, 'configs', '_base_', 'models',
-                            'faster_rcnn_r50_arfpn.py')
+from arfe_tpu_torch.train import bench
+from arfe_tpu_torch.train.bench import FLAGSHIP_CFG, H, IMG_SHAPE, W
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-H, W = 800, 1344            # the bench's padded image (bench.py:28)
-IMG_SHAPE = (800.0, 1333.0)  # its content shape (bench.py:90)
 
 
 def card():
@@ -67,7 +77,8 @@ def cuda_ms(fn, iters=20, warmup=3):
 def build_kernels():
     from arfe_tpu_torch.ops import cuda_build
     t0 = time.time()
-    logs = cuda_build.build(['fused_attention', 'roi_align'])
+    logs = cuda_build.build(['fused_attention', 'roi_align',
+                             'roi_align_bwd'])
     print(f'build: {time.time() - t0:.1f} s for {sorted(logs) or "nothing"}')
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
@@ -214,6 +225,128 @@ def check_roi_align(gen):
         bound_by='bytes', library_ms=None)
 
 
+def _shifted_levels(gen, rois, num_shifted):
+    """Scale-mapped levels, the first ``num_shifted`` moved by -1, 0 or +1."""
+    from arfe_tpu_torch.ops import roi_align as ra
+    lvls = ra.map_roi_levels(rois, 4, 56)
+    shift = torch.randint(-1, 2, lvls.shape, generator=gen, device='cuda')
+    shift[num_shifted:] = 0
+    return torch.clamp(lvls + shift.to(torch.int32), 0, 3).to(torch.int32)
+
+
+def check_roi_align_bwd(gen):
+    """Kernel C vs ``roi_align_backward_plain`` at the bs2 training shape:
+    f32 cotangent (R = 2 x 512 sampled RoIs, 7, 7, 256) into 4 f32 levels of
+    (2, 800/s, 1344/s, 256); then the gradient through ``roi_align_pyramid``
+    (kernels B and C) over f32 and bf16 levels against the plain versions."""
+    from arfe_tpu_torch.ops import roi_align as ra
+    dev = 'cuda'
+    strides = (4, 8, 16, 32)
+    rois = _test_rois(gen, 1024, 2, dev)
+    lvls = _shifted_levels(gen, rois, 512)
+    shapes = [(2, H // s, W // s, 256) for s in strides]
+    g = torch.randn((1024, 7, 7, 256), generator=gen, device=dev)
+    # the f32 atomics add in another order on every run: each pixel within
+    # 1e-5 of the sum of its terms' magnitudes (the plain backward of |g|)
+    scale = ra.roi_align_backward_plain(g.abs(), rois, lvls, shapes)
+
+    def within(got, want, extra=None):
+        ok, err = True, 0.0
+        for d, w, s in zip(got, want, scale):
+            diff = (d.float() - w.float()).abs()
+            allowed = 1e-5 * s + 1e-7
+            if extra is not None:
+                allowed = allowed + extra * w.float().abs()
+            ok = ok and bool((diff <= allowed).all()) \
+                and bool(torch.isfinite(d).all())
+            err = max(err, diff.max().item())
+        return ok, err
+
+    got = ra.roi_align_backward_cuda(g, rois, lvls, shapes)
+    want = ra.roi_align_backward_plain(g, rois, lvls, shapes)
+    torch.cuda.synchronize()
+    ok, err = within(got, want)
+    print(f'roi_align_bwd R=1024 B=2 f32: max_abs_err {err:.3e} (tol 1e-5 '
+          f'sum|terms| + 1e-7) {"ok" if ok else "FAIL"}')
+    rows = [ok]
+    for dt in (torch.float32, torch.bfloat16):
+        feats = [torch.randn(s, generator=gen, device=dev).to(dt)
+                 .requires_grad_() for s in shapes]
+        out = ra.roi_align_pyramid(feats, rois, lvls, (7, 7), strides, 2)
+        got = torch.autograd.grad(out, feats, g.to(dt))
+        if dt == torch.float32:
+            ref = ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7),
+                                             strides, 2)
+            want = torch.autograd.grad(ref, feats, g)
+            ok_dt, err_dt = within(got, want)
+            tol = 'as above'
+        else:
+            # the same f32 sums, rounded to bf16: one bf16 ulp more
+            want = ra.roi_align_backward_plain(g.to(dt), rois, lvls, shapes)
+            ok_dt, err_dt = within(got, want, 2.0 ** -7)
+            tol = 'as above + 2^-7 |ref|'
+        ok_dt = ok_dt and all(d.dtype == dt for d in got)
+        print(f'roi_align autograd (kernels B, C) {str(dt)[6:]} levels: '
+              f'max_abs_err {err_dt:.3e} vs plain ({tol}) '
+              f'{"ok" if ok_dt else "FAIL"}')
+        rows.append(ok_dt)
+    ms = cuda_ms(lambda: ra.roi_align_backward_cuda(g, rois, lvls, shapes))
+    plain_ms = cuda_ms(lambda: ra.roi_align_backward_plain(g, rois, lvls,
+                                                           shapes), iters=5)
+    corners, valid = ra.sample_corners([s[:3] for s in shapes], rois, lvls,
+                                       (7, 7), strides, 2, True)
+    touched = torch.unique(torch.cat([idx[valid] for idx, _ in corners]))
+    pixels = sum(b * h * w for b, h, w, _ in shapes)
+    # the function reads the cotangent once and writes each f32 level once
+    nbytes = (g.numel() + pixels * 256) * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    # the kernel writes each level once by its zero fill; its atomic adds
+    # then read and write every touched pixel at least once more
+    extra = 2 * touched.numel() * 256 * 4
+    print(f'roi_align_bwd R=1024 f32: kernel {ms:.4f} ms (zero fill '
+          f'included), plain {plain_ms:.4f} ms, bound {bound:.4f} ms '
+          f'({nbytes / 1e6:.1f} MB; {touched.numel()} distinct pixels of '
+          f'{pixels}; the atomic adds\' read and write of them {extra / 1e6:.1f}'
+          f' MB more, {extra / HBM_BYTES_PER_S * 1e3:.4f} ms)')
+    return all(rows), dict(
+        name='roi_align_bwd', route='cuda',
+        source='arfe_tpu_torch/csrc/roi_align_bwd.cu',
+        replaces='arfe_tpu/ops/pallas_roi_align.py:759',
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by='bytes', library_ms=None)
+
+
+def check_attention_grad(gen):
+    """That ``fused_softmax_attention`` (forward: kernel A; backward: the
+    VJP of ``attention_plain``, which recomputes the plain forward and never
+    reads kernel A's output) gives the plain version's gradients at the bs2
+    training shape (2, 4200, 256): a check that the gradient exists, not an
+    agreement of kernels (``check_attention`` holds kernel A). Also the
+    backward's time."""
+    from arfe_tpu_torch.ops import fused_attention as fa
+    ok = True
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((2, 4200, 256), generator=gen, device='cuda')
+                   .to(dt).requires_grad_() for _ in range(3))
+        g = torch.randn((2, 4200, 256), generator=gen, device='cuda')
+        out = fa.fused_softmax_attention(q, k, v)
+        got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+        want = torch.autograd.grad(fa.attention_plain(q, k, v), (q, k, v), g)
+        err = max((d.float() - w.float()).abs().max().item()
+                  / w.float().abs().max().item() for d, w in zip(got, want))
+        good = err <= 1e-6 and all(d.dtype == dt for d in got) \
+            and all(bool(torch.isfinite(d).all()) for d in got)
+        ok = ok and good
+        print(f'attention gradient exists (kernel A forward, plain VJP) '
+              f'B=2 N=4200 {str(dt)[6:]}: max rel err against the plain '
+              f'autograd {err:.3e} (tol 1e-6) '
+              f'{"ok" if good else "FAIL"}')
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                 retain_graph=True), iters=5)
+    print(f'attention backward (plain VJP) B=2 N=4200 bf16: {bwd_ms:.4f} ms')
+    return ok, bwd_ms
+
+
 def check_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -222,7 +355,9 @@ def check_kernels():
     gen = torch.Generator(device='cuda').manual_seed(0)
     ok_a, row_a = check_attention(gen)
     ok_b, row_b = check_roi_align(gen)
-    return ok_a and ok_b, [row_a, row_b]
+    ok_c, row_c = check_roi_align_bwd(gen)
+    ok_g, row_a['backward_plain_vjp_ms'] = check_attention_grad(gen)
+    return ok_a and ok_b and ok_c and ok_g, [row_a, row_b, row_c]
 
 
 # --------------------------------------------------------------------------
@@ -319,6 +454,189 @@ def reference_check(model):
     return ok
 
 
+# --------------------------------------------------------------------------
+# phase 5: train the flagship at full width
+# --------------------------------------------------------------------------
+
+def train():
+    """Four bs2 bf16 steps and one bs2 f32 step at 800x1344. Returns the
+    model, its parameters before the first step, the kernel launches of the
+    run, and whether every step gave
+    finite losses and launched all three kernels, the frozen parameters
+    stayed without a gradient, and every trainable tensor moved, but for
+    those whose gradient was exactly 0 in every step (named)."""
+    from arfe_tpu_torch.ops import fused_attention as fa
+    from arfe_tpu_torch.ops import roi_align as ra
+    from arfe_tpu_torch.train import make_train_step
+    t0 = time.time()
+    model, opt, scheduler, frozen = bench.build_trainer()
+    step = make_train_step(model, opt, scheduler)
+    batches = {dt: bench.synthetic_batch(2, dtype=dt)
+               for dt in (torch.bfloat16, torch.float32)}
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    trainable = [k for k in before if not any(k.startswith(f)
+                                              for f in frozen)]
+    params = dict(model.named_parameters())
+    had_grad = dict.fromkeys(trainable, False)
+    torch.cuda.synchronize()
+    print(f'build_trainer: {time.time() - t0:.1f} s, frozen {frozen}')
+    # the RPN's sampled anchors at the coarsest level (stride 64, last in
+    # the anchor table), the only ones whose loss reaches that level
+    rpn = model.rpn_head
+    top_stride = rpn.anchor_generator.strides[-1]
+    n_top = rpn.num_anchors * -(-H // top_stride[1]) * -(-W // top_stride[0])
+    targets, sampled = rpn._targets, {}
+
+    def keep_weights(*args, **kwargs):
+        out = targets(*args, **kwargs)
+        sampled['weights'] = out[1]
+        return out
+    rpn._targets = keep_weights
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    ok = True
+    fa.launches = ra.launches = ra.bwd_launches = 0
+    for i, dt in enumerate([torch.bfloat16] * 4 + [torch.float32]):
+        counts = (fa.launches, ra.launches, ra.bwd_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = step(batches[dt], gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        logs = {k: v.item() for k, v in logs.items()}
+        grew = [n - c for n, c in zip(
+            (fa.launches, ra.launches, ra.bwd_launches), counts)]
+        nonzero = torch.stack([params[k].grad.ne(0).any()
+                               if params[k].grad is not None
+                               else torch.tensor(False, device='cuda')
+                               for k in trainable]).tolist()
+        had_grad = {k: had_grad[k] or nz for k, nz in zip(trainable,
+                                                          nonzero)}
+        top = (sampled['weights'][:, -n_top:] > 0).sum(-1).tolist()
+        good = all(np.isfinite(v) for v in logs.values()) \
+            and all(n > 0 for n in grew)
+        ok = ok and good
+        print(f'train step {i}: bs2 {str(dt)[6:]} {ms:.2f} ms, '
+              + ', '.join(f'{k} {v:.5f}' for k, v in logs.items())
+              + f', launches attention {grew[0]} roi_align {grew[1]} '
+              f'roi_align_bwd {grew[2]}, RPN anchors sampled at stride '
+              f'{top_stride[0]} {top} {"ok" if good else "FAIL"}')
+    del rpn._targets
+    launches = {'fused_attention': fa.launches, 'roi_align': ra.launches,
+                'roi_align_bwd': ra.bwd_launches}
+    frozen_moved = [k for k in before if k not in had_grad and (
+        not torch.equal(params[k], before[k]) or params[k].grad is not None)]
+    no_grad = [k for k in trainable if params[k].grad is None
+               or not bool(torch.isfinite(params[k].grad).all())]
+    unchanged = [k for k in trainable if torch.equal(params[k], before[k])]
+    zero_grad = [k for k in trainable if not had_grad[k]]
+    stuck = [k for k in unchanged if had_grad[k]]
+    theta = model.neck[1].refine.theta.conv.weight.grad
+    live = theta is not None and float(theta.abs().max()) > 0
+    good = not frozen_moved and not no_grad and not stuck and live
+    print(f'train parameters: {len(trainable) - len(unchanged)} of '
+          f'{len(trainable)} trainable moved; unchanged with a nonzero '
+          f'gradient {stuck}; gradient exactly 0 in every step {zero_grad} '
+          f'(unchanged: {[k for k in zero_grad if k in unchanged]}); frozen '
+          f'moved or with a gradient {frozen_moved[:3]}; without a finite '
+          f'gradient {no_grad[:3]}; attention gradient live {live} '
+          f'{"ok" if good else "FAIL"}')
+    for dt, batch in batches.items():
+        print(f'AR-FPN attention-map convs per level in {str(dt)[6:]}, '
+              'outputs positive before the ReLU and of those unsaturated by '
+              'tanh (reduce_convs: positive, unsaturated; reduce_convs2: the '
+              f'same; of): {reduce_conv_activity(model, batch["img"])}')
+    return model, before, launches, ok and good
+
+
+def reduce_conv_activity(model, img):
+    """Per level, for each of the AR-FPN neck's two one-channel
+    attention-map convs (``tanh(relu(conv(x)))``): how many outputs are
+    positive before the ReLU, and how many of those also leave tanh below 1
+    in ``img``'s dtype. Only those pass a gradient to the conv: the ReLU
+    passes none where its input is not positive, and tanh's derivative
+    ``1 - tanh^2`` is exactly 0 where tanh rounds to 1 (inputs above about
+    9 in f32, about 3.5 in bf16)."""
+    neck = model.neck[1]
+    rows = []
+    with torch.no_grad():
+        feats = model.neck[0](model.backbone(img.permute(0, 3, 1, 2)))
+        for x, b, c in zip(feats, neck.reduce_convs, neck.reduce_convs2):
+            row = []
+            for m in (b, c):
+                z = m.conv(x)
+                row += [int((z > 0).sum()),
+                        int(((z > 0) & (torch.tanh(z) < 1)).sum())]
+            rows.append(tuple(row) + (z.numel(),))
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 6: a training step on the card against its plain path on the CPU
+# --------------------------------------------------------------------------
+
+def train_reference_check(model, start):
+    """The trainer's seeded starting weights ``start`` on the card and on
+    the CPU; one f32 ``forward_train`` + backward of a (2, 320, 480) batch
+    with the same sampling priorities on both, and once more on the CPU with
+    one thread (``bench.compare_with_cpu``). The starting weights give the
+    check the same input in every run: after the five steps above, whose
+    bf16 sums and atomic adds differ from run to run, some parameters'
+    gradients can differ by more than the limit between two summation
+    orders on the CPU alone. Each loss within ``bench.LOSS_RTOL`` + 4x
+    the CPU's own spread, relative; each parameter's largest gradient
+    difference within ``bench.GRAD_RTOL`` of its largest |g|, with the CPU's
+    spread printed beside it. The kernels' own checks above hold them to f32
+    rounding."""
+    from arfe_tpu_torch.apis import init_detector
+    h, w = 320, 480
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(start[k])
+    cpu = init_detector(FLAGSHIP_CFG, device='cpu', train=True)
+    cpu.load_state_dict(model.state_dict())
+    batch = bench.synthetic_batch(2, h, w, (float(h), float(w)),
+                                  torch.float32, seed=6, device='cpu')
+    r = bench.compare_with_cpu(model, cpu, batch)
+    print(f'train reference (CPU plain path, starting weights, 2x{h}x{w} '
+          f'f32, {r["cpu_s"]:.1f} '
+          f's on {r["threads"]} CPU threads): loss rel err on the card '
+          + ', '.join(f'{k} {v:.2e}' for k, v in r['loss_err'].items())
+          + ' (CPU 1 thread vs all: '
+          + ', '.join(f'{v:.2e}' for v in r['loss_spread'].values())
+          + f'; tol {bench.LOSS_RTOL:g} + 4x); largest gradient difference '
+          f'over its parameter\'s largest |g|: {r["grad_err"][0]:.2e} at '
+          f'{r["grad_err"][1]} (CPU 1 thread vs all: '
+          f'{r["grad_spread"][0]:.2e} at {r["grad_spread"][1]}; tol '
+          f'{bench.GRAD_RTOL:g}) over {r["params"]} parameters '
+          f'{"ok" if r["ok"] else "FAIL"}')
+    print('the same check against kernel C with one level\'s gradient '
+          'scaled by 1.03 reads, for levels 0-3: '
+          f'{[f"{x:.2e}" for x in level_error_readings(model, batch, r)]} '
+          f'(tol {bench.GRAD_RTOL:g})')
+    return r['ok']
+
+
+def level_error_readings(model, batch, r, scale=1.03):
+    """What the card-against-CPU gradient check reads when kernel C's
+    gradient of one level is off by ``scale``, for each level: the check's
+    sensitivity to a level-wide error of a few percent. Informational."""
+    from arfe_tpu_torch.ops import roi_align as ra
+    kernel = ra.roi_align_backward_cuda
+    readings = []
+    for lvl in range(4):
+        def off(*args, lvl=lvl, **kwargs):
+            out = kernel(*args, **kwargs)
+            out[lvl] = out[lvl] * scale
+            return out
+        ra.roi_align_backward_cuda = off
+        try:
+            got = bench.loss_and_grads(model, batch)
+        finally:
+            ra.roi_align_backward_cuda = kernel
+        readings.append(bench.differences(r['cpu'], got)[1][0])
+    return readings
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -328,11 +646,17 @@ def main():
     build_kernels()
     ok_kernels, rows = check_kernels()
     model = build_detector()
-    launches, ok_serve = serve(model)
+    launches_serve, ok_serve = serve(model)
     ok_ref = reference_check(model)
+    del model
+    torch.cuda.empty_cache()
+    model, start, launches, ok_train = train()
+    ok_train_ref = train_reference_check(model, start)
     for row in rows:
         row['launches'] = launches[row['name']]
-    if not (ok_kernels and ok_serve and ok_ref):
+        row['launches_serve'] = launches_serve.get(row['name'], 0)
+    if not (ok_kernels and ok_serve and ok_ref and ok_train
+            and ok_train_ref):
         print('chip_smoke: a phase failed', file=sys.stderr)
         return 1
     print(json.dumps({'kernels': rows}))

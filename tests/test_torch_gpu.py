@@ -1,12 +1,12 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card, their
+gradients through the autograd Functions, and the tiny flagship's inference
+and training step on the card against the CPU.
 
 Marked ``gpu``; every test skips where there is no CUDA device. This file
 imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
-import os
-
 import pytest
 import torch
 
@@ -15,12 +15,9 @@ from arfe_tpu_torch.config import Config
 from arfe_tpu_torch.core.bbox import bbox_overlaps
 from arfe_tpu_torch.ops import fused_attention as fa
 from arfe_tpu_torch.ops import roi_align as ra
+from arfe_tpu_torch.train import bench
 
 pytestmark = pytest.mark.gpu
-
-FLAGSHIP_CFG = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), 'configs', '_base_', 'models',
-    'faster_rcnn_r50_arfpn.py')
 
 
 @pytest.fixture
@@ -91,10 +88,9 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, channels):
         assert bool((d <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
 
 
-def test_detector_on_card_matches_cpu(cuda):
-    """The tiny flagship (R18, 64 channels) on the card, through both
-    kernels, against the same weights on the CPU (plain versions)."""
-    cfg = Config.fromfile(FLAGSHIP_CFG)
+def _tiny_cfg():
+    """The flagship at R18 and 64 channels."""
+    cfg = Config.fromfile(bench.FLAGSHIP_CFG)
     mc = cfg.model
     mc.backbone.depth = 18
     mc.neck[0].update(in_channels=[64, 128, 256, 512], out_channels=64)
@@ -102,6 +98,13 @@ def test_detector_on_card_matches_cpu(cuda):
     mc.rpn_head.update(in_channels=64, feat_channels=64)
     mc.roi_head.bbox_roi_extractor.out_channels = 64
     mc.roi_head.bbox_head.update(in_channels=64, fc_out_channels=128)
+    return cfg
+
+
+def test_detector_on_card_matches_cpu(cuda):
+    """The tiny flagship (R18, 64 channels) on the card, through both
+    kernels, against the same weights on the CPU (plain versions)."""
+    cfg = _tiny_cfg()
     cpu = init_detector(cfg, device='cpu')
     with torch.no_grad():
         cpu.neck[1].refine.conv_out.conv.weight.normal_(0, 0.02)
@@ -130,3 +133,119 @@ def test_detector_on_card_matches_cpu(cuda):
     close = (iou > 0.7) & (wl[:, None] == gl[None]) \
         & ((wd[:, None, 4] - gd[None, :, 4]).abs() < 1e-2)
     assert bool(close.any(dim=1).all())
+
+
+def _level_shapes(channels, b=2, h=200, w=336, strides=(4, 8, 16, 32)):
+    return [(b, h // s, w // s, channels) for s in strides]
+
+
+def _shifted_levels(gen, rois, dev):
+    lvls = ra.map_roi_levels(rois, 4)
+    shift = torch.randint(-1, 2, lvls.shape, generator=gen, device=dev)
+    return torch.clamp(lvls + shift.to(torch.int32), 0, 3).to(torch.int32)
+
+
+@pytest.mark.parametrize('channels', [256, 64])
+def test_roi_align_backward_kernel_matches_plain(cuda, channels):
+    """Kernel C against ``roi_align_backward_plain``. The f32 atomics add in
+    another order from run to run: each pixel within 1e-5 of the sum of its
+    terms' magnitudes (the plain backward of |g|), plus 1e-7."""
+    gen = torch.Generator(device=cuda).manual_seed(channels + 1)
+    rois = _rois(gen, cuda)
+    lvls = _shifted_levels(gen, rois, cuda)
+    shapes = _level_shapes(channels)
+    g = torch.randn((rois.shape[0], 7, 7, channels), generator=gen,
+                    device=cuda)
+    before = ra.bwd_launches
+    got = ra.roi_align_backward_cuda(g, rois, lvls, shapes)
+    assert ra.bwd_launches == before + 1
+    want = ra.roi_align_backward_plain(g, rois, lvls, shapes)
+    scale = ra.roi_align_backward_plain(g.abs(), rois, lvls, shapes)
+    for d, w, s in zip(got, want, scale):
+        assert d.dtype == torch.float32 and d.shape == w.shape
+        assert bool(((d - w).abs() <= 1e-5 * s + 1e-7).all())
+    assert any(bool(w.any()) for w in want)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_roi_align_gradient_on_card(cuda, dtype):
+    """``torch.autograd.grad`` through ``roi_align_pyramid``: kernels B and
+    C. f32: the plain forward's autograd, to the kernel's tolerance; bf16:
+    the plain backward rounded to bf16, at most one bf16 ulp apart."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    strides = (4, 8, 16, 32)
+    feats = [torch.randn(s, generator=gen, device=cuda).to(dtype)
+             .requires_grad_() for s in _level_shapes(64)]
+    rois = _rois(gen, cuda)
+    lvls = _shifted_levels(gen, rois, cuda)
+    g = torch.randn((rois.shape[0], 7, 7, 64), generator=gen, device=cuda)
+    b0, c0 = ra.launches, ra.bwd_launches
+    out = ra.roi_align_pyramid(feats, rois, lvls, (7, 7), strides, 0)
+    got = torch.autograd.grad(out, feats, g.to(dtype))
+    assert (ra.launches, ra.bwd_launches) == (b0 + 1, c0 + 1)
+    shapes = [f.shape for f in feats]
+    scale = ra.roi_align_backward_plain(g.abs(), rois, lvls, shapes)
+    if dtype == torch.float32:
+        ref = ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7), strides)
+        want = torch.autograd.grad(ref, feats, g)
+    else:
+        want = [w.to(dtype) for w in ra.roi_align_backward_plain(
+            g.to(dtype), rois, lvls, shapes)]
+    for d, w, s in zip(got, want, scale):
+        assert d.dtype == dtype
+        allowed = 1e-5 * s + 1e-7
+        if dtype == torch.bfloat16:
+            allowed = allowed + 2.0 ** -7 * w.float().abs()
+        assert bool(((d.float() - w.float()).abs() <= allowed).all())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_attention_gradient_on_card(cuda, dtype):
+    """The forward is kernel A, the backward the VJP of ``attention_plain``:
+    the gradients are those of the plain version's autograd."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn((2, 600, 128), generator=gen, device=cuda)
+               .to(dtype).requires_grad_() for _ in range(3))
+    g = torch.randn((2, 600, 128), generator=gen, device=cuda)
+    before = fa.launches
+    got = torch.autograd.grad(fa.fused_softmax_attention(q, k, v),
+                              (q, k, v), g)
+    assert fa.launches == before + 1
+    want = torch.autograd.grad(fa.attention_plain(q, k, v), (q, k, v), g)
+    for d, w in zip(got, want):
+        assert d.dtype == dtype and bool(torch.isfinite(d).all())
+        tol = 1e-6 * w.float().abs().max().item()
+        assert (d.float() - w.float()).abs().max().item() <= tol
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 forward_train + backward of the tiny flagship on the card
+    (kernels A, B and C) and on the CPU, with the same weights and sampling
+    priorities, under ``bench.compare_with_cpu``'s tolerances: each loss
+    within 1e-4 + 4x the CPU's own relative spread (one thread against
+    all), each parameter's largest gradient difference within 5e-2 of its
+    largest |g| (rounding alone moves some by ~1e-2 at random weights; a
+    wrong kernel differs by O(1))."""
+    cfg = _tiny_cfg()
+    cpu = init_detector(cfg, device='cpu', train=True)
+    with torch.no_grad():
+        cpu.neck[1].refine.conv_out.conv.weight.normal_(0, 0.02)
+    gpu = init_detector(cfg, device=cuda, train=True)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = torch.Generator().manual_seed(0)
+    b, h, w, num_gts = 2, 192, 256, 8
+    xy = torch.rand((b, num_gts, 2), generator=rng) * torch.tensor(
+        [w - 70.0, h - 70.0])
+    gt = torch.cat([xy, xy + 20 + 50 * torch.rand((b, num_gts, 2),
+                                                  generator=rng)], -1)
+    valid = torch.arange(num_gts)[None].expand(b, -1) < torch.tensor([[6],
+                                                                       [4]])
+    batch = dict(img=torch.randn((b, h, w, 3), generator=rng) * 0.2,
+                 img_shape=torch.tensor([[192.0, 250.0], [180.0, 256.0]]),
+                 gt_bboxes=gt, gt_valid=valid,
+                 gt_labels=torch.randint(0, 80, (b, num_gts), generator=rng))
+    counts = (fa.launches, ra.launches, ra.bwd_launches)
+    r = bench.compare_with_cpu(gpu, cpu, batch, seed=1)
+    assert [n - c for n, c in zip(
+        (fa.launches, ra.launches, ra.bwd_launches), counts)] == [1, 1, 1]
+    assert r['ok'], r

@@ -17,8 +17,14 @@ for m in pkgutil.walk_packages(arfe_tpu_torch.__path__, 'arfe_tpu_torch.'):
     importlib.import_module(m.name)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'arfe_tpu'))
-print('modules:', len(sys.modules), 'forbidden:', bad)
-sys.exit(1 if bad else 0)
+missing = [m for m in ('arfe_tpu_torch.train.optimizer',
+                       'arfe_tpu_torch.train.train_step',
+                       'arfe_tpu_torch.train.bench',
+                       'arfe_tpu_torch.models.losses.cross_entropy_loss',
+                       'arfe_tpu_torch.core.bbox.samplers')
+           if m not in sys.modules]
+print('modules:', len(sys.modules), 'forbidden:', bad, 'missing:', missing)
+sys.exit(1 if bad or missing else 0)
 '''
 
 
