@@ -195,7 +195,10 @@ def _lib():
 def roi_align_cuda(feats, rois, target_lvls, out_size=(7, 7),
                    featmap_strides=(4, 8, 16, 32), sample_num=2,
                    aligned=True):
-    """Launch the CUDA kernel; arguments as :func:`roi_align_pyramid_plain`."""
+    """Launch the CUDA kernel; arguments as :func:`roi_align_pyramid_plain`.
+    Raises ``ValueError`` where the kernel does not apply: channels not a
+    multiple of 8 (it reads 16-byte vectors of 8 channels) or a level not
+    16-byte aligned."""
     global launches
     dev = rois.device
     num = len(feats)
@@ -213,6 +216,11 @@ def roi_align_cuda(feats, rois, target_lvls, out_size=(7, 7),
             raise ValueError('roi_align: levels must be contiguous NHWC '
                              'tensors of one dtype, batch and channel count '
                              'on the RoIs\' CUDA device')
+    # the kernel reads 8 channels of a pixel as one 16-byte vector
+    if c % 8 or c > 8 * 256 or any(f.data_ptr() % 16 for f in feats):
+        raise ValueError(f'roi_align: {c} channels; the kernel takes a '
+                         'multiple of 8 up to 2048, in 16-byte aligned '
+                         'levels')
     if dev.type != 'cuda' or rois.dtype != torch.float32 or rois.dim() != 2 \
             or rois.shape[1] != 5 or not rois.is_contiguous():
         raise ValueError('roi_align: rois must be a contiguous (R, 5) f32 '

@@ -5,8 +5,10 @@
 1. Prints the card's name and power limit and builds the CUDA kernels from
    ``arfe_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes, in f32 and bf16, and times kernel, plain version and
-   (where one exists) the PyTorch library call with CUDA events; checks the
+   main path's shapes (attention at B=1 and B=2 over N=4200, and its tile
+   and key-split edge cases; RoIAlign at R=1000 bs1, R=1024 and R=2000
+   bs2), in f32 and bf16, and times kernel, plain version and (where one
+   exists) the PyTorch library call with CUDA events; checks the
    gradients through the RoIAlign autograd Function (kernels B and C)
    against the plain versions, and that the attention autograd Function
    (kernel A, then the plain version's VJP) gives the plain gradients.
@@ -35,7 +37,6 @@ fails.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -43,35 +44,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from arfe_tpu_torch.tools.timing import card, cuda_ms, host_ms
 from arfe_tpu_torch.train import bench
 from arfe_tpu_torch.train.bench import FLAGSHIP_CFG, H, IMG_SHAPE, W
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-
-
-def card():
-    """The card's ``name, power.limit`` as nvidia-smi reports them."""
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'],
-        check=True, capture_output=True, text=True).stdout.strip()
-    return out.splitlines()[0]
-
-
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean milliseconds per call of ``fn`` from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def build_kernels():
@@ -82,7 +61,8 @@ def build_kernels():
     print(f'build: {time.time() - t0:.1f} s for {sorted(logs) or "nothing"}')
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line or 'smem' in line:
+            if any(w in line for w in ('Function properties', 'registers',
+                                       'spill', 'smem', 'warning')):
                 print(f'  {name}: {line.strip()}')
 
 
@@ -90,54 +70,86 @@ def build_kernels():
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+def _attention_bound(b, n, c, dtype):
+    """Least time of one attention call, ms, and what bounds it: the two
+    products' 4*B*N^2*C operations at the dtype's peak, or q, k, v read
+    once and the f32 output written once."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    t_ops = 4.0 * b * n * n * c / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = b * n * c * (3 * isz + 4) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
+
+
 def check_attention(gen):
     """Kernel A vs ``attention_plain`` at AR-FPN's refine shape
-    (N = 50*84 = 4200 tokens of the stride-16 level, C = 256, no scale)."""
+    (N = 50*84 = 4200 tokens of the stride-16 level, C = 256, no scale) and
+    at the bf16 edge cases: whole tiles (4096), one ragged tile (77, also
+    with three key splits, the third empty), the tiny flagship's width
+    (130, 64) and (600, 128). Times kernel, plain version and SDPA at B=1
+    and B=2 in bf16, and kernel and SDPA at B=1 in f32."""
     from arfe_tpu_torch.ops import fused_attention as fa
     dev = 'cuda'
-    rows = []
-    cases = [(b, n, dt) for b in (1, 2) for n in (4200, 77)
-             for dt in (torch.float32, torch.bfloat16)]
-    main = None
-    for b, n, dt in cases:
-        q, k, v = (torch.randn((b, n, 256), generator=gen, device=dev)
+    bf = torch.bfloat16
+    cases = [(b, n, 256, dt, None) for b in (1, 2) for n in (4200, 77)
+             for dt in (torch.float32, bf)]
+    cases += [(1, 4096, 256, bf, None), (1, 77, 256, bf, 3),
+              (2, 130, 64, bf, None), (1, 600, 128, bf, None)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, inputs = [], {}
+    for b, n, c, dt, splits in cases:
+        q, k, v = (torch.randn((b, n, c), generator=gen, device=dev)
                    .to(dt) for _ in range(3))
-        got = fa.fused_attention_cuda(q, k, v)
+        # a forced count goes to the private launcher: key_splits never
+        # leaves a split without keys
+        got = fa.fused_attention_cuda(q, k, v) if splits is None \
+            else fa._launch(q, k, v, None, splits)
         ref = fa.attention_plain(q, k, v)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         # f32: both sum in f32, in another order; logits reach |q||k| ~ 50.
-        # bf16: the plain version rounds p to bf16 before PV, the kernel
-        # keeps f32, a difference of at most 2^-9 * max|v|; twice that.
+        # bf16: each side rounds every probability to bf16 once before PV
+        # (the bound is derived in csrc/fused_attention.cu)
         tol = 1e-4 if dt == torch.float32 \
             else 2.0 ** -8 * v.float().abs().max().item()
         ok = bool(torch.isfinite(got).all()) and err <= tol
-        print(f'attention B={b} N={n} C=256 {str(dt)[6:]}: max_abs_err '
-              f'{err:.3e} (tol {tol:.3e}) {"ok" if ok else "FAIL"}')
+        used = splits or (fa.key_splits(b, n, sms) if dt == bf else 1)
+        print(f'attention B={b} N={n} C={c} {str(dt)[6:]} splits {used} '
+              f'({-(-n // 64) * b * used} blocks): max_abs_err {err:.3e} '
+              f'(tol {tol:.3e}) {"ok" if ok else "FAIL"}')
         rows.append(ok)
-        if (b, n, dt) == (1, 4200, torch.bfloat16):
-            main = (q, k, v, err)
-    q, k, v, err = main
-    b, n, c = q.shape
-    ms = cuda_ms(lambda: fa.fused_attention_cuda(q, k, v))
+        if n == 4200 and splits is None:
+            inputs[b, dt] = (q, k, v, err)
+    times = {}
+    for b, dt in ((1, bf), (2, bf), (1, torch.float32)):
+        q, k, v, _ = inputs[b, dt]
+        q4, k4, v4 = (t[:, None] for t in (q, k, v))
+        def kernel():
+            return fa.fused_attention_cuda(q, k, v)
+        times[b, dt] = (
+            cuda_ms(kernel, graph=True),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                           scale=1.0),
+                    graph=True),
+            _attention_bound(b, 4200, 256, dt), host_ms(kernel))
+        ms, lib_ms, (bound, by), host = times[b, dt]
+        print(f'attention B={b} N=4200 {str(dt)[6:]}: kernel {ms:.4f} ms '
+              f'(an event loop of calls: {cuda_ms(kernel):.4f} ms), sdpa '
+              f'{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); the '
+              f'wrapper\'s host time {host:.4f} ms per call')
+    q, k, v, err = inputs[1, bf]
     plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v))
-    q4, k4, v4 = (t[:, None] for t in (q, k, v))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                            scale=1.0))
-    flops = 4.0 * b * n * n * c
-    nbytes = b * n * c * (3 * q.element_size() + 4)
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f'attention B=1 N=4200 bf16: kernel {ms:.4f} ms, plain '
-          f'{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms')
+    print(f'attention B=1 N=4200 bf16: plain {plain_ms:.4f} ms')
+    ms, lib_ms, (bound, by), host = times[1, bf]
+    ms2, lib_ms2, (bound2, _), _ = times[2, bf]
+    ms32, lib_ms32, (bound32, _), _ = times[1, torch.float32]
     return all(rows), dict(
         name='fused_attention', route='cuda',
         source='arfe_tpu_torch/csrc/fused_attention.cu',
         replaces='arfe_tpu/ops/pallas_attention.py:102',
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_bytes),
-        bound_by='operations' if t_ops >= t_bytes else 'bytes',
-        library_ms=lib_ms)
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=lib_ms, host_ms=host,
+        ms_b2=ms2, library_ms_b2=lib_ms2, bound_ms_b2=bound2,
+        ms_f32=ms32, library_ms_f32=lib_ms32, bound_ms_f32=bound32)
 
 
 def _test_rois(gen, num, batch, dev):
@@ -163,21 +175,21 @@ def _test_rois(gen, num, batch, dev):
     return torch.stack([b, x1, y1, x2, y2], 1).contiguous()
 
 
-def check_roi_align(gen):
-    """Kernel B vs ``roi_align_pyramid_plain`` at the bs2 serving shape:
-    4 levels of (2, 800/s, 1344/s, 256), R = 2 x 1000 proposals."""
+def _roi_align_case(gen, num, batch, strides=(4, 8, 16, 32)):
+    """Kernel B vs ``roi_align_pyramid_plain`` for ``num`` RoIs over 4
+    levels of (batch, 800/s, 1344/s, 256), in f32 and bf16; half the levels
+    mapped by scale, half shifted by +-1. Returns whether both agree, the
+    bf16 inputs and error, and the f32 inputs."""
     from arfe_tpu_torch.ops import roi_align as ra
     dev = 'cuda'
-    strides = (4, 8, 16, 32)
-    rois = _test_rois(gen, 2000, 2, dev)
+    rois = _test_rois(gen, num, batch, dev)
     lvls = ra.map_roi_levels(rois, 4, 56)
     shift = torch.randint(-1, 2, lvls.shape, generator=gen, device=dev)
-    shift[:1000] = 0          # half mapped by scale, half shifted by +-1
+    shift[:num // 2] = 0
     lvls = torch.clamp(lvls + shift.to(torch.int32), 0, 3).to(torch.int32)
-    rows = []
-    main = None
+    ok, kept = True, {}
     for dt in (torch.float32, torch.bfloat16):
-        feats = [torch.randn((2, H // s, W // s, 256), generator=gen,
+        feats = [torch.randn((batch, H // s, W // s, 256), generator=gen,
                              device=dev).to(dt) for s in strides]
         got = ra.roi_align_cuda(feats, rois, lvls, (7, 7), strides, 2, True)
         ref = ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7), strides,
@@ -193,36 +205,81 @@ def check_roi_align(gen):
         else:
             allowed, tol = 2.0 ** -7 * ref.float().abs() + 1e-6, \
                 '2^-7 |ref| + 1e-6'
-        ok = bool((d <= allowed).all()) and bool(torch.isfinite(got).all())
-        print(f'roi_align R=2000 B=2 {str(dt)[6:]}: max_abs_err {err:.3e} '
-              f'(tol {tol}) {"ok" if ok else "FAIL"}')
-        if not ok:
+        good = bool((d <= allowed).all()) and bool(torch.isfinite(got).all())
+        print(f'roi_align R={num} B={batch} {str(dt)[6:]}: max_abs_err '
+              f'{err:.3e} (tol {tol}) {"ok" if good else "FAIL"}')
+        if not good:
             worst = int((d - allowed).flatten().argmax())
             r = worst // d[0].numel()
             print(f'  worst at roi {r} {rois[r].tolist()} level '
                   f'{int(lvls[r])}: got {got.flatten()[worst].item()} ref '
                   f'{ref.flatten()[worst].item()}')
-        rows.append(ok)
-        if dt == torch.bfloat16:
-            main = (feats, err)
-    feats, err = main
-    ms = cuda_ms(lambda: ra.roi_align_cuda(feats, rois, lvls, (7, 7),
-                                           strides, 2, True))
-    plain_ms = cuda_ms(lambda: ra.roi_align_pyramid_plain(
-        feats, rois, lvls, (7, 7), strides, 2, True), iters=5)
-    corners, valid = ra.sample_corners([f.shape[:3] for f in feats], rois,
+        ok = ok and good
+        kept[dt] = (feats, rois, lvls, err)
+    return ok, kept
+
+
+def _touched_pixels(level_shapes, rois, lvls, strides=(4, 8, 16, 32)):
+    """How many distinct level pixels the RoIs' 7 x 7 x 2 x 2 samples read."""
+    from arfe_tpu_torch.ops import roi_align as ra
+    corners, valid = ra.sample_corners([s[:3] for s in level_shapes], rois,
                                        lvls, (7, 7), strides, 2, True)
-    touched = torch.unique(torch.cat([idx[valid] for idx, _ in corners]))
-    isz = feats[0].element_size()
-    nbytes = touched.numel() * 256 * isz + rois.shape[0] * 49 * 256 * isz
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f'roi_align R=2000 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} '
-          f'ms, bound {bound:.4f} ms ({touched.numel()} distinct pixels)')
-    return all(rows), dict(
+    return torch.unique(torch.cat([idx[valid] for idx, _ in corners])).numel()
+
+
+def _roi_align_bound(feats, rois, lvls, strides=(4, 8, 16, 32)):
+    """Least time of one RoIAlign call, ms: the output written once and the
+    distinct feature pixels its samples touch read once, at HBM rate.
+    Returns it and the count of those pixels."""
+    touched = _touched_pixels([f.shape for f in feats], rois, lvls, strides)
+    c, isz = feats[0].shape[-1], feats[0].element_size()
+    nbytes = (touched + rois.shape[0] * 49) * c * isz
+    return nbytes / HBM_BYTES_PER_S * 1e3, touched
+
+
+def check_roi_align(gen):
+    """Kernel B vs ``roi_align_pyramid_plain`` at the main path's shapes:
+    R = 2 x 1000 proposals at bs2 serving (the table's shape), R = 1000 at
+    bs1 serving, R = 2 x 512 sampled RoIs at bs2 training; each in f32 and
+    bf16, and timed in bf16 beside its bound (and in f32 at R = 2000)."""
+    from arfe_tpu_torch.ops import roi_align as ra
+    strides = (4, 8, 16, 32)
+    row, ok = {}, True
+    for num, batch, key in ((2000, 2, ''), (1000, 1, '_r1000'),
+                            (1024, 2, '_r1024')):
+        good, kept = _roi_align_case(gen, num, batch, strides)
+        ok = ok and good
+        for dt in ((torch.bfloat16, torch.float32) if num == 2000
+                   else (torch.bfloat16,)):
+            feats, rois, lvls, err = kept[dt]
+            def kernel():
+                return ra.roi_align_cuda(feats, rois, lvls, (7, 7), strides,
+                                         2, True)
+            ms = cuda_ms(kernel, graph=True)
+            bound, touched = _roi_align_bound(feats, rois, lvls, strides)
+            name = str(dt)[6:]
+            print(f'roi_align R={num} B={batch} {name}: kernel {ms:.4f} ms, '
+                  f'bound {bound:.4f} ms ({touched} distinct pixels)')
+            if dt == torch.float32:
+                row.update(ms_f32=ms, bound_ms_f32=bound)
+            else:
+                row.update({'ms' + key: ms, 'bound_ms' + key: bound})
+                if num == 2000:
+                    row['max_abs_err'] = err
+                    row['host_ms'] = host_ms(kernel)
+                    print(f'roi_align R=2000 bf16: the wrapper\'s host time '
+                          f'{row["host_ms"]:.4f} ms per call; an event loop '
+                          f'of calls {cuda_ms(kernel):.4f} ms')
+                    plain_ms = cuda_ms(lambda: ra.roi_align_pyramid_plain(
+                        feats, rois, lvls, (7, 7), strides, 2, True),
+                        iters=5)
+                    print(f'roi_align R=2000 bf16: plain {plain_ms:.4f} ms')
+    return ok, dict(
         name='roi_align', route='cuda', source='arfe_tpu_torch/csrc/roi_align.cu',
         replaces='arfe_tpu/ops/pallas_roi_align.py:339',
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by='bytes', library_ms=None)
+        max_abs_err=row.pop('max_abs_err'), ms=row.pop('ms'),
+        plain_ms=plain_ms, bound_ms=row.pop('bound_ms'), bound_by='bytes',
+        library_ms=None, **row)
 
 
 def _shifted_levels(gen, rois, num_shifted):
@@ -290,22 +347,21 @@ def check_roi_align_bwd(gen):
               f'max_abs_err {err_dt:.3e} vs plain ({tol}) '
               f'{"ok" if ok_dt else "FAIL"}')
         rows.append(ok_dt)
-    ms = cuda_ms(lambda: ra.roi_align_backward_cuda(g, rois, lvls, shapes))
+    ms = cuda_ms(lambda: ra.roi_align_backward_cuda(g, rois, lvls, shapes),
+                 graph=True)
     plain_ms = cuda_ms(lambda: ra.roi_align_backward_plain(g, rois, lvls,
                                                            shapes), iters=5)
-    corners, valid = ra.sample_corners([s[:3] for s in shapes], rois, lvls,
-                                       (7, 7), strides, 2, True)
-    touched = torch.unique(torch.cat([idx[valid] for idx, _ in corners]))
+    touched = _touched_pixels(shapes, rois, lvls, strides)
     pixels = sum(b * h * w for b, h, w, _ in shapes)
     # the function reads the cotangent once and writes each f32 level once
     nbytes = (g.numel() + pixels * 256) * 4
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     # the kernel writes each level once by its zero fill; its atomic adds
     # then read and write every touched pixel at least once more
-    extra = 2 * touched.numel() * 256 * 4
+    extra = 2 * touched * 256 * 4
     print(f'roi_align_bwd R=1024 f32: kernel {ms:.4f} ms (zero fill '
           f'included), plain {plain_ms:.4f} ms, bound {bound:.4f} ms '
-          f'({nbytes / 1e6:.1f} MB; {touched.numel()} distinct pixels of '
+          f'({nbytes / 1e6:.1f} MB; {touched} distinct pixels of '
           f'{pixels}; the atomic adds\' read and write of them {extra / 1e6:.1f}'
           f' MB more, {extra / HBM_BYTES_PER_S * 1e3:.4f} ms)')
     return all(rows), dict(

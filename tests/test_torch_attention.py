@@ -1,5 +1,7 @@
 """Kernel A's plain version and NonLocal2D against the JAX package on the
 CPU (``fused_softmax_attention`` takes its XLA einsum path off the TPU)."""
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,3 +73,69 @@ def test_non_local_matches_jax():
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
                                atol=1e-5)
     assert np.abs(want - x).max() > 1e-2
+
+
+def _split_attention(q, k, v, splits, tile=64):
+    """Attention over ``splits`` runs of whole ``tile``-key tiles, merged as
+    the bf16 kernel merges them: split s keeps its row max m_s, row sum l_s
+    and unnormalised output O_s (keys past N masked to -inf, a split with
+    no valid key m_s = -inf, l_s = 0, O_s = 0), and
+    O = sum_s e^(m_s - M) O_s / sum_s e^(m_s - M) l_s, M = max_s m_s, over
+    the splits with l_s > 0."""
+    b, n, c = q.shape
+    tiles = -(-n // tile)
+    width = -(-tiles // splits) * tile   # keys per split
+    logits = torch.full((b, n, splits * width), float('-inf'))
+    logits[:, :, :n] = q @ k.transpose(-1, -2)
+    vals = torch.zeros((b, splits * width, c))
+    vals[:, :n] = v
+    ms, ls, outs = [], [], []
+    for s in range(splits):
+        x = logits[:, :, s * width:(s + 1) * width]
+        m = x.amax(-1, keepdim=True)
+        p = torch.exp(x - torch.where(torch.isfinite(m), m, torch.zeros(())))
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        outs.append(p @ vals[:, s * width:(s + 1) * width])
+    big = torch.stack(ms).amax(0)
+    num, den = torch.zeros((b, n, c)), torch.zeros((b, n, 1))
+    for m, l, o in zip(ms, ls, outs):
+        w = torch.where(l > 0, torch.exp(m - big), torch.zeros(()))
+        num, den = num + w * o, den + w * l
+    return num / den
+
+
+# N = 77: a ragged last tile; N = 128: whole tiles. With 3 splits of 2 key
+# tiles, the third split holds no valid key (entirely masked).
+@pytest.mark.parametrize('splits', [1, 2, 3])
+@pytest.mark.parametrize('n', [77, 128])
+def test_key_split_merge_matches_plain_and_jax(n, splits):
+    q, k, v = _qkv(2, n, 64, 3, scale=0.5)
+    got = _split_attention(*map(torch.from_numpy, (q, k, v)), splits)
+    assert bool(torch.isfinite(got).all())
+    want = fa.attention_plain(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+    want_jax = np.asarray(j_attn(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v)))
+    np.testing.assert_allclose(got.numpy(), want_jax, atol=1e-5)
+
+
+@pytest.mark.parametrize('b,n,want', [(1, 4200, 4), (2, 4200, 2),
+                                      (1, 4096, 4), (1, 77, 2)])
+def test_key_splits_fill_the_card(b, n, want):
+    """On 132 SMs of two block slots each: B=1 at N=4200 gets four splits
+    (264 blocks of 64 query rows), B=2 two; no split is ever left without a
+    key tile."""
+    splits = fa.key_splits(b, n, 132)
+    assert splits == want
+    tiles = -(-n // 64)
+    per = -(-tiles // splits)
+    assert (splits - 1) * per < tiles
+    if n == 4200:
+        assert tiles * b * splits >= 2 * 132
+
+
+def test_key_tile_is_the_kernels_tile():
+    """``key_splits`` counts key tiles of the bf16 kernel's own width."""
+    src = Path(fa.__file__).parent.parent / 'csrc' / 'fused_attention.cu'
+    assert f'constexpr int BK = {fa.KEY_TILE};' in src.read_text()

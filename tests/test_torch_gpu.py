@@ -29,9 +29,14 @@ def cuda():
     return torch.device('cuda')
 
 
+# bf16: (1, 4200) the stride-16 level at 800x1344 with four key splits,
+# (1, 4096) whole tiles, every split full, (1, 77) one ragged tile in the
+# second split, (2, 130, 64) the tiny flagship's width
 @pytest.mark.parametrize('b,n,c,dtype', [
     (1, 4200, 256, torch.float32), (2, 4200, 256, torch.bfloat16),
-    (2, 77, 64, torch.float32), (3, 130, 128, torch.bfloat16)])
+    (2, 77, 64, torch.float32), (3, 130, 128, torch.bfloat16),
+    (1, 4200, 256, torch.bfloat16), (1, 4096, 256, torch.bfloat16),
+    (1, 77, 256, torch.bfloat16), (2, 130, 64, torch.bfloat16)])
 def test_attention_kernel_matches_plain(cuda, b, n, c, dtype):
     gen = torch.Generator(device=cuda).manual_seed(n + c)
     q, k, v = (torch.randn((b, n, c), generator=gen, device=cuda).to(dtype)
@@ -40,11 +45,45 @@ def test_attention_kernel_matches_plain(cuda, b, n, c, dtype):
     got = fa.fused_softmax_attention(q, k, v)
     assert fa.launches == before + 1
     ref = fa.attention_plain(q, k, v)
-    # f32: another summation order; bf16: the plain version rounds p to
-    # bf16 before PV (at most 2^-9 max|v| apart), allowed twice over
+    # f32: another summation order; bf16: each side rounds every
+    # probability to bf16 once (csrc/fused_attention.cu derives the bound)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -8 * v.abs().max().item()
     assert got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
     assert (got - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize('n,c', [(77, 256), (128, 64)])
+def test_attention_kernel_empty_split_adds_nothing(cuda, n, c):
+    """Three key splits of two key tiles: the third has no key (m = -inf,
+    l = 0) and the merge must skip it, not turn it into NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v = (torch.randn((1, n, c), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    got = fa._launch(q, k, v, None, 3)   # a count key_splits never picks
+    ref = fa.attention_plain(q, k, v)
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= 2.0 ** -8 * v.abs().max().item()
+
+
+def test_launch_counters_move_by_one_per_call(cuda):
+    """One wrapper call is one launch on its counter, whatever it runs:
+    kernel A split with its merge kernel, A unsplit, A in f32, kernel B."""
+    q = torch.randn((1, 4200, 256), device=cuda).to(torch.bfloat16)
+    one_tile = q[:, :64].contiguous()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fa.key_splits(1, 4200, sms) > 1 and fa.key_splits(1, 64, sms) == 1
+    for t in (q, one_tile, q.float()):
+        before = fa.launches
+        fa.fused_attention_cuda(t, t, t)
+        assert fa.launches == before + 1
+    feats = [torch.randn((1, 200 // s, 336 // s, 64), device=cuda)
+             for s in (4, 8, 16, 32)]
+    rois = _rois(torch.Generator(device=cuda).manual_seed(0), cuda, batch=1)
+    for _ in range(2):
+        before = ra.launches
+        ra.roi_align_cuda(feats, rois, ra.map_roi_levels(rois, 4))
+        assert ra.launches == before + 1
 
 
 def test_attention_kernel_rejects_fp16(cuda):
@@ -65,14 +104,15 @@ def _rois(gen, dev, num=400, batch=2, h=200.0, w=336.0):
     return torch.stack([b, x1, y1, x2, y2], 1).contiguous()
 
 
+# R = 1000 with 256 channels: the bs1 serving count of proposals
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('channels', [256, 64])
-def test_roi_align_kernel_matches_plain(cuda, dtype, channels):
+@pytest.mark.parametrize('channels,num', [(256, 400), (64, 400), (256, 1000)])
+def test_roi_align_kernel_matches_plain(cuda, dtype, channels, num):
     gen = torch.Generator(device=cuda).manual_seed(channels)
     strides = (4, 8, 16, 32)
     feats = [torch.randn((2, 200 // s, 336 // s, channels), generator=gen,
                          device=cuda).to(dtype) for s in strides]
-    rois = _rois(gen, cuda)
+    rois = _rois(gen, cuda, num=num)
     lvls = ra.map_roi_levels(rois, 4)
     shift = torch.randint(-1, 2, lvls.shape, generator=gen, device=cuda)
     lvls = torch.clamp(lvls + shift.to(torch.int32), 0, 3).to(torch.int32)
@@ -86,6 +126,18 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, channels):
         assert d.max().item() <= 1e-5
     else:   # the same f32 sums, rounded to bf16: at most one ulp apart
         assert bool((d <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
+
+
+def test_roi_align_kernel_rejects_channels_off_the_vector(cuda):
+    """The kernel reads 8 channels as one 16-byte vector: 12 channels
+    raise, with no fallback."""
+    feats = [torch.randn((1, 200 // s, 336 // s, 12), device=cuda)
+             for s in (4, 8, 16, 32)]
+    rois = _rois(torch.Generator(device=cuda).manual_seed(0), cuda, batch=1)
+    before = ra.launches
+    with pytest.raises(ValueError):
+        ra.roi_align_cuda(feats, rois, ra.map_roi_levels(rois, 4))
+    assert ra.launches == before
 
 
 def _tiny_cfg():
