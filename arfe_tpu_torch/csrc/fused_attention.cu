@@ -60,13 +60,57 @@
 //   the two sides' independent roundings of many small terms average out
 //   far below it.
 //
-// f32 inputs: the f32 FMA units (attention_f32_kernel), for the f32
-//   requests, the f32 training step and the card-against-CPU checks. One
-//   block of 8 warps per (64-query tile, image), no key split; Q, K, V tiles
-//   in f32 shared memory, rows padded by 4 floats; warp w owns query rows
-//   8w..8w+7 in both products, so row max and row sum are warp shuffles.
-//   Probabilities stay f32, so it agrees with the plain version to f32
-//   summation order. Tensor cores in f32 (TF32 or 3xTF32) are later work.
+// f32 inputs: the tensor cores in 3xTF32 (attention_f32_kernel), for the
+//   f32 requests, the f32 training step and the card-against-CPU checks.
+//   Arithmetic: each f32 operand x is split into big = tf32(x) (cvt.rna)
+//   and small = x - big (read as tf32 by the tensor cores, which drop its
+//   low bits), and each product a b is taken as a_big b_big + a_small
+//   b_big + a_big b_small, accumulated in f32 (the small x small term,
+//   ~2^-22 |a b|, is dropped). One TF32 product alone
+//   keeps 10 mantissa bits: at the f32 check's inputs (randn q, k, v, C =
+//   256) its logits are off by ~1e-2 and the output by ~1.5e-2, against the
+//   1e-4 tolerance; 3xTF32 by ~7e-6 (tests/test_torch_attention.py emulates
+//   both). The bound is thus 3 x 4 B N^2 C operations at the dense TF32
+//   peak. The tensor cores' f32 accumulation is coarser than an f32 FMA's:
+//   run over all 256 channels (96 MMAs into one accumulator of logits that
+//   reach ~100), Q K^T left the output 1.3e-4 off the plain version at N =
+//   4200, over the 1e-4 tolerance. So each 16 channels of Q K^T go into a
+//   fresh accumulator, added to the scores in f32 (round to nearest): the
+//   output is then 1.8e-5 to 2.8e-5 off an f64 reference, closer than the
+//   plain version (cuBLAS f32, 4.8e-5 to 9.1e-5) and SDPA in f32 (2.1e-5 to
+//   3.5e-5) come (tools/attention_accuracy.py, PERF.md), so the distance to
+//   the plain version is mostly the plain version's own error. Chunks of 8
+//   channels, or of 8 keys in P V, gained nothing and cost time.
+//   Instructions: mma.sync.m16n8k8 tf32, not wgmma. wgmma's tf32 form takes
+//   both shared-memory operands K-major only, so P V would need V
+//   transposed in shared memory, and big and small copies of the Q, K and
+//   V^T tiles exceed 227 KB at C = 256. With mma.sync each fragment is read
+//   from shared memory once, split in registers, and feeds three MMAs, so
+//   the shared-memory traffic per MMA is a third of a plain TF32 kernel's
+//   (the limit that sank earlier bf16 mma.sync designs, PERF.md).
+//   Block: 8 warps own 128 query rows (warp w rows 16w..16w+15) and walk
+//   32-key tiles with an online softmax. Shared memory holds the f32 Q tile
+//   (128 rows) and one stage each of K and V (32 rows); rows are padded so
+//   that every fragment load is free of bank conflicts: 207,360 B at C =
+//   256, one block per SM. A tile's V is copied (cp.async) while Q K^T runs,
+//   the next tile's K while P V runs. Fragments are read as float4: within
+//   a step of 16 channels, thread (g, t) (g = lane / 4, t = lane % 4) takes
+//   channels 4t..4t+3 of its Q rows and K row, which serve as k = t, t + 4
+//   of two k-steps (Q and K use the same channel order, and the product
+//   sums over channels). In P V the scores' accumulator layout (keys 2t,
+//   2t + 1 of each 8-key block) is used as the A operand directly by
+//   taking k = t as key 2t and k = t + 4 as key 2t + 1, and V's rows are
+//   read in that order; V's columns are read as float4 by giving n-block
+//   j = 4i + e, column g, the channel 32i + 4g + e, which the epilogue
+//   undoes (a thread's 8 outputs of a row are channels 32i + 8t .. + 7).
+//   Key split and merge as in the bf16 path, with the f32 kernel's own tile
+//   counts (key_splits in ops/fused_attention.py): 4 splits x 33 query
+//   tiles = 132 blocks at B = 1, N = 4200; 2 x 66 at B = 2. Softmax as in
+//   the bf16 path (f32, log2 units, running max subtracted, keys past N
+//   -inf, an empty split skipped by the merge); the probabilities stay f32
+//   (split like any operand).
+//   ptxas (-v, sm_90a): 255 registers at C = 256 (199 at 128, 157 at 64),
+//   no spills; 207,360 B of dynamic shared memory at C = 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,7 +119,7 @@
 namespace {
 
 constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // keys per tile (KEY_TILE in ops/fused_attention.py)
+constexpr int BK = 64;  // keys per tile (TILES in ops/fused_attention.py)
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Lets `Kernel` take `bytes` of dynamic shared memory on the current
@@ -91,175 +135,6 @@ cudaError_t allow_smem(size_t bytes) {
   err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   done[dev] = err == cudaSuccess;
   return err;
-}
-
-// ---------------------------------------------------------------------------
-// f32: FMA units
-// ---------------------------------------------------------------------------
-
-constexpr int F32_THREADS = 256;  // 8 warps
-constexpr int ROWS = 8;           // query rows per warp
-constexpr int F32_PAD = 4;        // floats of padding per Q / K / P row
-
-// Rows [row0, row0 + 64) of an (n, C) f32 matrix into shared memory with row
-// stride ld; rows at or past n are zero.
-template <int C>
-__device__ __forceinline__ void load_tile_f32(float* dst, int ld, const float* src,
-                                              int row0, int n) {
-  constexpr int V4 = C / 4;
-  for (int i = threadIdx.x; i < 64 * V4; i += F32_THREADS) {
-    const int r = i / V4;
-    const int c = (i % V4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * C + c);
-    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int C>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * ((size_t)(BQ + BK) * (C + F32_PAD) + (size_t)BK * C +
-                          (size_t)BQ * (BK + F32_PAD));
-}
-
-template <int C>
-__global__ void __launch_bounds__(F32_THREADS)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out, int n,
-                     float scale) {
-  extern __shared__ __align__(16) float smem_f32[];
-  constexpr int LDQ = C + F32_PAD;
-  constexpr int LDP = BK + F32_PAD;
-  constexpr int CPL = C / 32;  // output columns per lane: lane + 32 * j
-  float* qs = smem_f32;        // BQ x LDQ
-  float* ks = qs + BQ * LDQ;   // BK x LDQ
-  float* vs = ks + BK * LDQ;   // BK x C
-  float* ps = vs + BK * C;     // BQ x LDP
-
-  const int q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)blockIdx.y * n * C;
-  const int lane = threadIdx.x % 32;
-  const int row0 = (threadIdx.x / 32) * ROWS;
-
-  load_tile_f32<C>(qs, LDQ, q + base, q0, n);
-
-  float acc[ROWS][CPL];
-  float m[ROWS], l[ROWS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K / V tile
-    load_tile_f32<C>(ks, LDQ, k + base, k0, n);
-    load_tile_f32<C>(vs, C, v + base, k0, n);
-    __syncthreads();
-
-    // scores of rows row0..row0+7 against keys k0+lane and k0+lane+32
-    float s[ROWS][2];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) s[i][0] = s[i][1] = 0.f;
-    const float* ka_row = ks + lane * LDQ;
-    const float* kb_row = ks + (lane + 32) * LDQ;
-#pragma unroll 2
-    for (int c = 0; c < C; c += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(ka_row + c);
-      const float4 kb = *reinterpret_cast<const float4*>(kb_row + c);
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float4 qv = *reinterpret_cast<const float4*>(qs + (row0 + i) * LDQ + c);
-        s[i][0] = fmaf(qv.x, ka.x, s[i][0]);
-        s[i][0] = fmaf(qv.y, ka.y, s[i][0]);
-        s[i][0] = fmaf(qv.z, ka.z, s[i][0]);
-        s[i][0] = fmaf(qv.w, ka.w, s[i][0]);
-        s[i][1] = fmaf(qv.x, kb.x, s[i][1]);
-        s[i][1] = fmaf(qv.y, kb.y, s[i][1]);
-        s[i][1] = fmaf(qv.z, kb.z, s[i][1]);
-        s[i][1] = fmaf(qv.w, kb.w, s[i][1]);
-      }
-    }
-
-    // online softmax update; every tile holds at least one valid key (k0 < n)
-    const bool valid_a = k0 + lane < n;
-    const bool valid_b = k0 + lane + 32 < n;
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const float sa = valid_a ? s[i][0] * scale : -INFINITY;
-      const float sb = valid_b ? s[i][1] * scale : -INFINITY;
-      const float m_new = fmaxf(m[i], warp_max(fmaxf(sa, sb)));
-      const float alpha = expf(m[i] - m_new);  // exp(-inf) = 0 on the first tile
-      const float pa = expf(sa - m_new);
-      const float pb = expf(sb - m_new);
-      l[i] = l[i] * alpha + warp_sum(pa + pb);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) acc[i][j] *= alpha;
-      ps[(row0 + i) * LDP + lane] = pa;
-      ps[(row0 + i) * LDP + lane + 32] = pb;
-    }
-    __syncwarp();
-
-    // acc += P V over this tile's keys
-#pragma unroll 1
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 p4[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(ps + (row0 + i) * LDP + kk);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float* vrow = vs + (kk + t) * C + lane;
-        float vv[CPL];
-#pragma unroll
-        for (int j = 0; j < CPL; ++j) vv[j] = vrow[32 * j];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) {
-          const float p = t == 0 ? p4[i].x : t == 1 ? p4[i].y : t == 2 ? p4[i].z : p4[i].w;
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int r = q0 + row0 + i;
-    if (r < n) {
-      float* orow = out + base + (size_t)r * C + lane;
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) orow[32 * j] = acc[i][j] / l[i];
-    }
-  }
-}
-
-template <int C>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       int batch, int n, float scale, cudaStream_t stream) {
-  constexpr size_t smem = f32_smem_bytes<C>();
-  cudaError_t err = allow_smem<attention_f32_kernel<C>>(smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + BQ - 1) / BQ, batch);
-  attention_f32_kernel<C><<<grid, F32_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), n, scale);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -651,6 +526,18 @@ merge_kernel(const float* __restrict__ part_o, const float2* __restrict__ part_m
       make_float4(acc.x / sum, acc.y / sum, acc.z / sum, acc.w / sum);
 }
 
+// The merge of `splits` partials into out (the tc and f32 kernels write the
+// same partials).
+template <int C>
+cudaError_t launch_merge(void* part_o, void* part_ml, void* out, int rows, int splits,
+                         cudaStream_t stream) {
+  const size_t threads = (size_t)rows * (C / 4);
+  merge_kernel<C><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(part_o), static_cast<const float2*>(part_ml),
+      static_cast<float*>(out), rows, splits);
+  return cudaGetLastError();
+}
+
 template <int C>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, void* part_o,
                       void* part_ml, int batch, int n, float scale, int splits,
@@ -669,11 +556,276 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, vo
       merge ? static_cast<float2*>(part_ml) : nullptr, n, scale * LOG2E, tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || !merge) return err;
-  const size_t threads = (size_t)batch * n * (C / 4);
-  merge_kernel<C><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(part_o), static_cast<const float2*>(part_ml),
-      static_cast<float*>(out), batch * n, splits);
-  return cudaGetLastError();
+  return launch_merge<C>(part_o, part_ml, out, batch * n, splits, stream);
+}
+
+// ---------------------------------------------------------------------------
+// f32: tensor cores in 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int F32_THREADS = 256;  // 8 warps; warp w owns query rows 16w..16w+15
+constexpr int BQ32 = 128;         // query rows per block
+constexpr int BK32 = 32;          // keys per tile (TILES in ops/fused_attention.py)
+
+// Floats per shared-memory row. Q and K rows are read as float4 at channel
+// 4t by the 8 lanes of a quarter warp, rows g and g + 1: a stride of 16 mod
+// 32 floats puts the two rows in the two halves of the 32 banks. V rows are
+// read as float4 at channel 4g by rows 2t (t = 0..3) and g = 0, 1: a stride
+// of 4 mod 16 puts the four rows 8 banks apart.
+template <int C>
+__host__ __device__ constexpr int ld_qk() { return C + 16; }
+template <int C>
+__host__ __device__ constexpr int ld_v() { return C + 4; }
+
+template <int C>
+constexpr size_t f32_smem_bytes() {
+  return sizeof(float) * ((size_t)(BQ32 + BK32) * ld_qk<C>() + (size_t)BK32 * ld_v<C>());
+}
+
+// x = big + small: big = x rounded to tf32 (to nearest, ties away from
+// zero), small = x - big, exact in f32. The tensor cores read small as tf32
+// by dropping its low 13 bits, an error below 2^-10 |small| <= 2^-21 |x|.
+// Rounding small with a second cvt left the kernel's error as it was
+// (PERF.md) and cost a third of the split's instructions, which compete
+// with the MMAs for issue slots.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d (16 x 8 f32 of the warp) += a b over 8 k in one TF32 product. Lane (g,
+// t): a holds (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b (k t,
+// col g), (t + 4, g); d (g, cols 2t, 2t + 1), (g + 8, the same cols).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32, a already split; b = (b0, b1) is split here. The
+// order of the three products changed neither the error nor the time
+// measurably; this one left ptxas no spills (PERF.md).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], float b0, float b1) {
+  uint32_t b0_big, b0_small, b1_big, b1_small;
+  split_tf32(b0, b0_big, b0_small);
+  split_tf32(b1, b1_big, b1_small);
+  mma_tf32(d, a_big, b0_big, b1_big);
+  mma_tf32(d, a_small, b0_big, b1_big);
+  mma_tf32(d, a_big, b0_small, b1_small);
+}
+
+__device__ __forceinline__ void split_frag(float x0, float x1, float x2, float x3,
+                                           uint32_t (&big)[4], uint32_t (&small)[4]) {
+  split_tf32(x0, big[0], small[0]);
+  split_tf32(x1, big[1], small[1]);
+  split_tf32(x2, big[2], small[2]);
+  split_tf32(x3, big[3], small[3]);
+}
+
+// Rows [row0, row0 + ROWS) of an (n, C) f32 matrix into shared memory at
+// `dst` (row stride ld floats) by cp.async; rows at or past n are zero.
+template <int C, int ROWS>
+__device__ __forceinline__ void load_rows_async(float* dst, int ld, const float* src, int row0,
+                                                int n) {
+  constexpr int CHUNKS = C / 4;  // 16-byte chunks per row
+  static_assert(ROWS * CHUNKS % F32_THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * CHUNKS / F32_THREADS; ++j) {
+    const int i = threadIdx.x + j * F32_THREADS;
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool valid = row0 + r < n;
+    const float* s = src + (size_t)(valid ? row0 + r : 0) * C + c * 4;
+    cp_async16(smem_addr(dst + r * ld + c * 4), s, valid);
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ part_o, float2* __restrict__ part_ml, int n,
+                     float scale_log2, int tiles_per_split) {
+  extern __shared__ __align__(16) float smem_f32[];
+  constexpr int LDQ = ld_qk<C>(), LDV = ld_v<C>();
+  float* qs = smem_f32;         // BQ32 x LDQ
+  float* ks = qs + BQ32 * LDQ;  // BK32 x LDQ
+  float* vs = ks + BK32 * LDQ;  // BK32 x LDV
+
+  const int q0 = blockIdx.x * BQ32;
+  const int split = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t base = (size_t)b * n * C;
+  const int k_tiles = (n + BK32 - 1) / BK32;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, k_tiles);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, quad = lane & 3;
+
+  float o[C / 8][4];  // n-block j of the warp's 16 x C output (channels: see the end)
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's part of the row sums
+
+  // this thread's Q rows g, g + 8 of the warp and K row g, at channel 4 quad;
+  // V rows 2 quad, 2 quad + 1 of an 8-key step, at channel 4 g
+  const float* qa = qs + (warp * 16 + g) * LDQ + 4 * quad;
+  const float* kb = ks + g * LDQ + 4 * quad;
+  const float* vb = vs + 2 * quad * LDV + 4 * g;
+
+  if (t_begin < t_end) {
+    load_rows_async<C, BQ32>(qs, LDQ, q + base, q0, n);
+    load_rows_async<C, BK32>(ks, LDQ, k + base, t_begin * BK32, n);
+    cp_async_commit();
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    load_rows_async<C, BK32>(vs, LDV, v + base, t * BK32, n);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and this tile's K have landed
+    __syncthreads();
+
+    // S = Q K^T: the warp's 16 rows x 32 keys, 4 n-blocks of 8 keys. A step
+    // of 16 channels is two k-steps: channels (4t, 4t + 1) as k = (t, t + 4),
+    // then (4t + 2, 4t + 3).
+    float s[4][4];
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll 2
+    for (int c0 = 0; c0 < C; c0 += 16) {
+      const float4 lo = *reinterpret_cast<const float4*>(qa + c0);
+      const float4 hi = *reinterpret_cast<const float4*>(qa + 8 * LDQ + c0);
+      uint32_t a_big[2][4], a_small[2][4];
+      split_frag(lo.x, hi.x, lo.y, hi.y, a_big[0], a_small[0]);
+      split_frag(lo.z, hi.z, lo.w, hi.w, a_big[1], a_small[1]);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const float4 kv = *reinterpret_cast<const float4*>(kb + nb * 8 * LDQ + c0);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(part, a_big[0], a_small[0], kv.x, kv.y);
+        mma_3xtf32(part, a_big[1], a_small[1], kv.z, kv.w);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] += part[e];
+      }
+    }
+
+    // online softmax in f32 (log2 units); keys at or past n are -inf
+    const int key0 = t * BK32 + 2 * quad;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = key0 + nb * 8 + (e & 1) < n ? s[nb][e] * scale_log2 : -INFINITY;
+        s[nb][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);  // finite: the tile has a valid key
+      alpha[i] = exp2f(m[i] - m_new);          // 0 on the split's first tile
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[nb][e] - m[e >> 1]);
+        s[nb][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+
+    cp_async_wait<0>();  // this tile's V has landed
+    __syncthreads();     // ... for every warp, and every warp is done with K
+    if (t + 1 < t_end) {
+      load_rows_async<C, BK32>(ks, LDQ, k + base, (t + 1) * BK32, n);
+      cp_async_commit();
+    }
+
+    // O += P V over the tile's 4 steps of 8 keys. The A operand is the
+    // scores' n-block kk as it lies: (g, k t) is key 2t, (g, k t + 4) key
+    // 2t + 1. B's column g of n-block 4i + e is channel 32i + 4g + e.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t p_big[4], p_small[4];
+      split_frag(s[kk][0], s[kk][2], s[kk][1], s[kk][3], p_big, p_small);
+      const float* v0 = vb + kk * 8 * LDV;
+#pragma unroll
+      for (int i = 0; i < C / 32; ++i) {
+        const float4 x0 = *reinterpret_cast<const float4*>(v0 + 32 * i);        // key 2t
+        const float4 x1 = *reinterpret_cast<const float4*>(v0 + LDV + 32 * i);  // key 2t + 1
+        mma_3xtf32(o[4 * i], p_big, p_small, x0.x, x1.x);
+        mma_3xtf32(o[4 * i + 1], p_big, p_small, x0.y, x1.y);
+        mma_3xtf32(o[4 * i + 2], p_big, p_small, x0.z, x1.z);
+        mma_3xtf32(o[4 * i + 3], p_big, p_small, x0.w, x1.w);
+      }
+    }
+    __syncthreads();  // every warp is done with V before the next tile's copy
+  }
+
+  // the row sums over the quad's 4 threads
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  // o[4i + e] holds, for row g (g + 8), channel 32i + 8t + e in [0] ([2])
+  // and channel 32i + 8t + 4 + e in [1] ([3])
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const bool merge = part_o != nullptr;
+  float* dst = merge ? part_o + ((size_t)split * gridDim.z + b) * n * C : out + base;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= n) continue;
+    const float inv_l = merge ? 1.f : 1.f / l[r];
+    float* orow = dst + (size_t)row[r] * C + 8 * quad;
+#pragma unroll
+    for (int i = 0; i < C / 32; ++i) {
+      float4 lo, hi;
+      lo.x = o[4 * i][2 * r] * inv_l;
+      lo.y = o[4 * i + 1][2 * r] * inv_l;
+      lo.z = o[4 * i + 2][2 * r] * inv_l;
+      lo.w = o[4 * i + 3][2 * r] * inv_l;
+      hi.x = o[4 * i][2 * r + 1] * inv_l;
+      hi.y = o[4 * i + 1][2 * r + 1] * inv_l;
+      hi.z = o[4 * i + 2][2 * r + 1] * inv_l;
+      hi.w = o[4 * i + 3][2 * r + 1] * inv_l;
+      *reinterpret_cast<float4*>(orow + 32 * i) = lo;
+      *reinterpret_cast<float4*>(orow + 32 * i + 4) = hi;
+    }
+    if (merge && quad == 0)
+      part_ml[((size_t)split * gridDim.z + b) * n + row[r]] = make_float2(m[r], l[r]);
+  }
+}
+
+template <int C>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, void* part_o,
+                       void* part_ml, int batch, int n, float scale, int splits,
+                       cudaStream_t stream) {
+  constexpr size_t smem = f32_smem_bytes<C>();
+  cudaError_t err = allow_smem<attention_f32_kernel<C>>(smem);
+  if (err != cudaSuccess) return err;
+  const int k_tiles = (n + BK32 - 1) / BK32;
+  const int tiles_per_split = (k_tiles + splits - 1) / splits;
+  const bool merge = splits > 1;
+  const dim3 grid((n + BQ32 - 1) / BQ32, splits, batch);
+  attention_f32_kernel<C><<<grid, F32_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), merge ? static_cast<float*>(part_o) : nullptr,
+      merge ? static_cast<float2*>(part_ml) : nullptr, n, scale * LOG2E, tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !merge) return err;
+  return launch_merge<C>(part_o, part_ml, out, batch * n, splits, stream);
 }
 
 template <int C>
@@ -681,18 +833,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
                    void* part_ml, int batch, int n, float scale, int is_bf16, int splits,
                    cudaStream_t stream) {
   if (is_bf16) return launch_tc<C>(q, k, v, out, part_o, part_ml, batch, n, scale, splits, stream);
-  if (splits != 1) return cudaErrorInvalidValue;
-  return launch_f32<C>(q, k, v, out, batch, n, scale, stream);
+  return launch_f32<C>(q, k, v, out, part_o, part_ml, batch, n, scale, splits, stream);
 }
 
 }  // namespace
 
 // q, k, v: (batch, n, c) contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1),
 // 16-byte aligned; out: (batch, n, c) f32. c is 64, 128 or 256. `splits`
-// key splits (bf16 only; 1 for f32): with splits > 1, part_o is f32 scratch
-// of (splits, batch, n, c) and part_ml of (splits, batch, n, 2), and a
-// second kernel merges them into out. Launches on `stream` and returns the
-// cudaError_t of the launches (0 on success).
+// key splits, in key tiles of the dtype's kernel (64 keys in bf16, 32 in
+// f32): with splits > 1, part_o is f32 scratch of (splits, batch, n, c) and
+// part_ml of (splits, batch, n, 2), and a second kernel merges them into
+// out. Launches on `stream` and returns the cudaError_t of the launches (0
+// on success).
 extern "C" int arfe_fused_attention(const void* q, const void* k, const void* v, void* out,
                                     void* part_o, void* part_ml, int batch, int n, int c,
                                     float scale, int is_bf16, int splits, void* stream) {

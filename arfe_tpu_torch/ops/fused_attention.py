@@ -3,8 +3,9 @@
 Counterpart of ``arfe_tpu/ops/pallas_attention.py``
 (``attention_auto``). :func:`fused_softmax_attention` runs
 :class:`AttentionFunction`: on a CUDA tensor its forward launches the
-hand-written kernel in ``csrc/fused_attention.cu`` (bf16 inputs: the tensor
-cores with a key split; f32 inputs: the FMA units); on a CPU tensor it runs
+hand-written kernel in ``csrc/fused_attention.cu`` (bf16 inputs: ``wgmma``;
+f32 inputs: ``mma.sync`` in 3xTF32; both on the tensor cores with a key
+split); on a CPU tensor it runs
 :func:`attention_plain`, the plain PyTorch version the kernel is held
 against. There is no fallback from one to the other. The backward is the
 VJP of :func:`attention_plain`, as the JAX package's is the VJP of its XLA
@@ -25,10 +26,11 @@ launches = 0
 
 _SUPPORTED_C = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: keys per tile of the bf16 kernel (``BK`` in ``csrc/fused_attention.cu``)
-KEY_TILE = 64
-#: blocks of the bf16 kernel an SM holds at once (two at C = 256)
-BLOCKS_PER_SM = 2
+#: query rows and keys per tile of each dtype's kernel (``BQ``, ``BK`` and
+#: ``BQ32``, ``BK32`` in ``csrc/fused_attention.cu``), and the blocks an SM
+#: holds at once at C = 256: two of 99,328 B of shared memory in bf16, one
+#: of 207,360 B in f32
+TILES = {torch.bfloat16: (64, 64, 2), torch.float32: (128, 32, 1)}
 MOST_SPLITS = 16
 
 
@@ -58,20 +60,22 @@ def _sm_count(device_index):
 
 
 @functools.lru_cache(maxsize=256)
-def key_splits(batch, n, sms):
-    """Key splits of the bf16 kernel for ``batch`` images of ``n`` tokens on
-    ``sms`` SMs that hold ``BLOCKS_PER_SM`` blocks each: the count whose
-    blocks (query tiles x splits x batch) take the fewest waves x key tiles
-    per block, the fewer splits on a tie, and none that would leave a split
-    without a key tile."""
-    tiles = -(-n // KEY_TILE)
-    slots = sms * BLOCKS_PER_SM
+def key_splits(batch, n, sms, dtype=torch.bfloat16):
+    """Key splits of ``dtype``'s kernel for ``batch`` images of ``n`` tokens
+    on ``sms`` SMs, with that kernel's tiles and blocks per SM
+    (:data:`TILES`): the count whose blocks (query tiles x splits x batch)
+    take the fewest waves x key tiles per block, the fewer splits on a tie,
+    and none that would leave a split without a key tile."""
+    query_tile, key_tile, per_sm = TILES[dtype]
+    q_tiles = -(-n // query_tile)
+    tiles = -(-n // key_tile)
+    slots = sms * per_sm
     best, best_cost = 1, None
     for s in range(1, min(tiles, MOST_SPLITS) + 1):
         per = -(-tiles // s)
         if -(-tiles // per) != s:
             continue
-        cost = -(-(tiles * batch * s) // slots) * per
+        cost = -(-(q_tiles * batch * s) // slots) * per
         if best_cost is None or cost < best_cost:
             best, best_cost = s, cost
     return best
@@ -80,10 +84,10 @@ def key_splits(batch, n, sms):
 def fused_attention_cuda(q, k, v, scale=None):
     """Launch the CUDA kernel; q, k, v (B, N, C) contiguous on one device.
 
-    The input dtype picks the kernel: bf16 runs on the tensor cores with
-    the keys split :func:`key_splits` ways for this card (a merge kernel
-    joins the splits, and the pair counts as one launch); f32 runs on the
-    FMA units, unsplit.
+    The input dtype picks the kernel: bf16 runs ``wgmma``, f32 ``mma.sync``
+    in 3xTF32, both with the keys split :func:`key_splits` ways for this
+    card and that kernel (a merge kernel joins the splits, and the pair
+    counts as one launch).
     """
     dev = q.device
     if dev.type != 'cuda' or k.device != dev or v.device != dev:
@@ -104,16 +108,15 @@ def fused_attention_cuda(q, k, v, scale=None):
     b, n, c = q.shape
     if c not in _SUPPORTED_C:
         raise ValueError(f'fused attention: C={c} not in {_SUPPORTED_C}')
-    splits = key_splits(b, n, _sm_count(dev.index)) \
-        if q.dtype == torch.bfloat16 else 1
-    return _launch(q, k, v, scale, splits)
+    return _launch(q, k, v, scale, key_splits(b, n, _sm_count(dev.index),
+                                              q.dtype))
 
 
 def _launch(q, k, v, scale, splits):
-    """The launch of checked inputs with ``splits`` key splits (1 for f32).
-    Only :func:`fused_attention_cuda` and the card's tests and split timings
-    call it: a forced count may leave a split without keys, which the merge
-    skips."""
+    """The launch of checked inputs with ``splits`` key splits, in key tiles
+    of the dtype's kernel. Only :func:`fused_attention_cuda` and the card's
+    tests and split timings call it: a forced count may leave a split
+    without keys, which the merge skips."""
     global launches
     b, n, c = q.shape
     dev = q.device

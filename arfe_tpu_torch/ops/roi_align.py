@@ -61,16 +61,17 @@ def _bilinear_params(coord, size):
     return i0, i1, 1.0 - w1, w1, valid
 
 
-def sample_corners(level_shapes, rois, target_lvls, out_size=(7, 7),
-                   featmap_strides=(4, 8, 16, 32), sample_num=2,
-                   aligned=True):
-    """The bilinear corners of every sample of every RoI.
+def axis_samples(level_shapes, rois, target_lvls, out_size=(7, 7),
+                 featmap_strides=(4, 8, 16, 32), sample_num=2, aligned=True):
+    """The bilinear parameters of every RoI's samples along each axis.
 
-    ``level_shapes`` are the (B, Hl, Wl) of the levels. Returns the four
-    corners (00, 01, 10, 11) as ``(index, weight)`` pairs of shape
-    (R, oh*sn, ow*sn), where ``index`` is a row of the levels packed one after
-    the other as (sum B*Hl*Wl, C) and ``weight`` is zero for invalid samples,
-    and the (R, oh*sn, ow*sn) validity of the samples.
+    ``level_shapes`` are the (B, Hl, Wl) of the levels. Returns ``(ys, xs,
+    base, width)``: ``ys`` and ``xs`` are the ``(i0, i1, w0, w1, valid)`` of
+    the (R, oh*sn) y samples and the (R, ow*sn) x samples on each RoI's
+    level, ``base`` the (R,) row of each RoI's image in the levels packed
+    one after the other as (sum B*Hl*Wl, C), and ``width`` the (R,) width
+    of each RoI's level. A sample's weight on a corner is the product of
+    its two axes' weights, and the sample is valid where both axes are.
     """
     oh, ow = out_size
     sn = sample_num
@@ -86,7 +87,7 @@ def sample_corners(level_shapes, rois, target_lvls, out_size=(7, 7),
     lvl = target_lvls.long()
     lvl_h, lvl_w = sizes[lvl, 0], sizes[lvl, 1]
     lvl_scale = scales[lvl]
-    lin_base = offsets[lvl] + rois[:, 0].long() * lvl_h * lvl_w
+    base = offsets[lvl] + rois[:, 0].long() * lvl_h * lvl_w
 
     offset = 0.5 if aligned else 0.0
     x1 = rois[:, 1] * lvl_scale - offset
@@ -105,8 +106,24 @@ def sample_corners(level_shapes, rois, target_lvls, out_size=(7, 7),
     bin_w = roi_w / torch.full_like(roi_w, ow)
     ys = y1[:, None] + iy[None, :] * bin_h[:, None]
     xs = x1[:, None] + ix[None, :] * bin_w[:, None]
-    y0i, y1i, wy0, wy1, vy = _bilinear_params(ys, lvl_h[:, None].float())
-    x0i, x1i, wx0, wx1, vx = _bilinear_params(xs, lvl_w[:, None].float())
+    return (_bilinear_params(ys, lvl_h[:, None].float()),
+            _bilinear_params(xs, lvl_w[:, None].float()), base, lvl_w)
+
+
+def sample_corners(level_shapes, rois, target_lvls, out_size=(7, 7),
+                   featmap_strides=(4, 8, 16, 32), sample_num=2,
+                   aligned=True):
+    """The bilinear corners of every sample of every RoI.
+
+    ``level_shapes`` are the (B, Hl, Wl) of the levels. Returns the four
+    corners (00, 01, 10, 11) as ``(index, weight)`` pairs of shape
+    (R, oh*sn, ow*sn), where ``index`` is a row of the levels packed one after
+    the other as (sum B*Hl*Wl, C) and ``weight`` is zero for invalid samples,
+    and the (R, oh*sn, ow*sn) validity of the samples.
+    """
+    (y0i, y1i, wy0, wy1, vy), (x0i, x1i, wx0, wx1, vx), lin_base, lvl_w = \
+        axis_samples(level_shapes, rois, target_lvls, out_size,
+                     featmap_strides, sample_num, aligned)
     valid = vy[:, :, None] & vx[:, None, :]
     validf = valid.float()
 
@@ -264,7 +281,11 @@ def roi_align_backward_cuda(g, rois, target_lvls, level_shapes,
                             sample_num=2, aligned=True):
     """Launch the gradient kernel; arguments and result as
     :func:`roi_align_backward_plain`, with ``g`` a contiguous f32 CUDA
-    tensor. The f32 gradient levels are zero-filled here."""
+    tensor. The f32 gradient levels are zero-filled here. Raises
+    ``ValueError`` where the kernel does not apply: channels not a multiple
+    of 4 up to 1024 (it adds 4 channels of a pixel as one 16-byte vector),
+    a cotangent not 16-byte aligned, or more than 128 samples per RoI side
+    pair ((out_h + out_w) * sample_num)."""
     global bwd_launches
     dev = rois.device
     num = len(level_shapes)
@@ -288,6 +309,13 @@ def roi_align_backward_cuda(g, rois, target_lvls, level_shapes,
         raise ValueError('roi_align_backward: target_lvls must be a '
                          'contiguous (R,) int32 tensor on the RoIs\' device')
     c = g.shape[3]
+    if c % 4 or c > 4 * 256 or g.data_ptr() % 16 \
+            or (oh + ow) * sample_num > 128:
+        raise ValueError(f'roi_align_backward: {c} channels, {oh}x{ow} bins '
+                         f'of {sample_num}^2 samples; the kernel takes a '
+                         'multiple of 4 channels up to 1024 in a 16-byte '
+                         'aligned cotangent, and (out_h + out_w) * '
+                         'sample_num up to 128')
     b = level_shapes[0][0]
     grads = [torch.zeros((b, s[1], s[2], c), dtype=torch.float32, device=dev)
              for s in level_shapes]

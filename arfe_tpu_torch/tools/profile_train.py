@@ -1,8 +1,9 @@
 """Where the time of one flagship training step goes, on the card.
 
-    python -m arfe_tpu_torch.tools.profile_train [--batch 2]
+    python -m arfe_tpu_torch.tools.profile_train [--batch 2] [--dtype f32]
 
-Trains the flagship Faster R-CNN R50 + AR-FPN at 800x1344 in bf16 with
+Trains the flagship Faster R-CNN R50 + AR-FPN at 800x1344 in bf16 (or f32:
+``--dtype f32``) with
 seeded random weights, the bench's synthetic batch (8 gt boxes of 30-80 px
 per image, ``bench.py:170-185``) and its SGD schedule (``bench.py:163-168``),
 both from ``arfe_tpu_torch.train.bench`` as in ``chip_smoke.py``, and
@@ -29,6 +30,7 @@ from .profile_serve import ITERS, _busy_us
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=2)
+    ap.add_argument('--dtype', choices=('bf16', 'f32'), default='bf16')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_train: no CUDA device')
@@ -38,7 +40,8 @@ def main():
     model, opt, scheduler, _ = bench.build_trainer()
     gen = torch.Generator(device='cuda').manual_seed(0)
     b = args.batch
-    batch = bench.synthetic_batch(b)
+    batch = bench.synthetic_batch(b, dtype=torch.bfloat16
+                                  if args.dtype == 'bf16' else torch.float32)
 
     def staged():
         """One step, stage by stage; returns each stage's wall ms."""
@@ -90,7 +93,7 @@ def main():
     print(f'step staged: median {sorted(sum(s) for s in stage_ms)[n // 2]:.2f}'
           f' ms wall; peak memory '
           f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
-    print(f'step bs{b} bf16: {wall_us / n / 1e3:.2f} ms wall under the '
+    print(f'step bs{b} {args.dtype}: {wall_us / n / 1e3:.2f} ms wall under the '
           f'profiler, device busy {busy / n / 1e3:.2f} ms, idle share '
           f'{1 - busy / wall_us:.3f}, {len(kernels) / n:.0f} kernels')
     totals = {}

@@ -8,7 +8,9 @@
    main path's shapes (attention at B=1 and B=2 over N=4200, and its tile
    and key-split edge cases; RoIAlign at R=1000 bs1, R=1024 and R=2000
    bs2), in f32 and bf16, and times kernel, plain version and (where one
-   exists) the PyTorch library call with CUDA events; checks the
+   exists) the PyTorch library call by CUDA-graph replay beside each
+   kernel's bound, and the RoIAlign gradient as a bf16 training step pays
+   it (casts, zero fill and kernel C); checks the
    gradients through the RoIAlign autograd Function (kernels B and C)
    against the plain versions, and that the attention autograd Function
    (kernel A, then the plain version's VJP) gives the plain gradients.
@@ -23,7 +25,9 @@
    synthetic batch (``bench.py:150-185``): four bs2 steps at 800x1344 in
    bf16 and one in f32. Every step must launch all three kernels; the frozen
    stem and layer1 must not move; every other tensor must move, unless its
-   gradient was exactly 0 in every step (those are named).
+   gradient was exactly 0 in every step (those are named). Then holds
+   kernel C against its plain version on the first step's cotangent, RoIs
+   and levels, and times it there.
 6. Checks one f32 training step on the card against the same weights (the
    trainer's seeded starting weights) and sampling priorities on the CPU
    (plain path) on a small image: losses and gradients.
@@ -49,8 +53,10 @@ from arfe_tpu_torch.train import bench
 from arfe_tpu_torch.train.bench import FLAGSHIP_CFG, H, IMG_SHAPE, W
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s
+# (bf16 and TF32 on the tensor cores, f32 on the FMA units)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 494.7e12
 
 
 def build_kernels():
@@ -72,10 +78,15 @@ def build_kernels():
 
 def _attention_bound(b, n, c, dtype):
     """Least time of one attention call, ms, and what bounds it: the two
-    products' 4*B*N^2*C operations at the dtype's peak, or q, k, v read
-    once and the f32 output written once."""
+    products' 4*B*N^2*C operations at the tensor cores' dense peak, or q, k,
+    v read once and the f32 output written once. In f32 the products count
+    three times at the TF32 peak: 3xTF32 is the least work that gives an
+    f32-accurate result on the tensor cores (one TF32 product is off by
+    ~1.5e-2, tests/test_torch_attention.py)."""
     isz = torch.tensor([], dtype=dtype).element_size()
-    t_ops = 4.0 * b * n * n * c / PEAK_FLOPS[dtype] * 1e3
+    ops = 4.0 * b * n * n * c
+    t_ops = (3 * ops / TF32_FLOPS if dtype == torch.float32
+             else ops / PEAK_FLOPS[dtype]) * 1e3
     t_bytes = b * n * c * (3 * isz + 4) / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
 
@@ -83,17 +94,20 @@ def _attention_bound(b, n, c, dtype):
 def check_attention(gen):
     """Kernel A vs ``attention_plain`` at AR-FPN's refine shape
     (N = 50*84 = 4200 tokens of the stride-16 level, C = 256, no scale) and
-    at the bf16 edge cases: whole tiles (4096), one ragged tile (77, also
-    with three key splits, the third empty), the tiny flagship's width
-    (130, 64) and (600, 128). Times kernel, plain version and SDPA at B=1
-    and B=2 in bf16, and kernel and SDPA at B=1 in f32."""
+    at the edge cases: whole tiles (4096), one ragged tile (77, also with a
+    forced split count whose last split is empty: three of 64-key tiles in
+    bf16, four of 32-key tiles in f32), the tiny flagship's width (130, 64)
+    and (600, 128). Times kernel, plain version and SDPA at B=1 and B=2 in
+    bf16, and kernel and SDPA at B=1 and B=2 in f32."""
     from arfe_tpu_torch.ops import fused_attention as fa
     dev = 'cuda'
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [(b, n, 256, dt, None) for b in (1, 2) for n in (4200, 77)
-             for dt in (torch.float32, bf)]
+             for dt in (f32, bf)]
     cases += [(1, 4096, 256, bf, None), (1, 77, 256, bf, 3),
-              (2, 130, 64, bf, None), (1, 600, 128, bf, None)]
+              (1, 77, 256, f32, 4), (2, 130, 64, bf, None),
+              (2, 130, 64, f32, None), (1, 600, 128, bf, None),
+              (1, 600, 128, f32, None)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, inputs = [], {}
     for b, n, c, dt, splits in cases:
@@ -112,15 +126,25 @@ def check_attention(gen):
         tol = 1e-4 if dt == torch.float32 \
             else 2.0 ** -8 * v.float().abs().max().item()
         ok = bool(torch.isfinite(got).all()) and err <= tol
-        used = splits or (fa.key_splits(b, n, sms) if dt == bf else 1)
+        if dt == f32 and n == 4200:
+            # the plain version's own f32 error sets the floor of the
+            # comparison: both against an f64 reference
+            exact = torch.softmax(q.double() @ k.double().transpose(-1, -2),
+                                  -1) @ v.double()
+            print(f'attention B={b} N={n} f32 against f64: kernel '
+                  f'{(got.double() - exact).abs().max().item():.3e}, plain '
+                  f'{(ref.double() - exact).abs().max().item():.3e}')
+            del exact
+        used = splits or fa.key_splits(b, n, sms, dt)
+        blocks = -(-n // fa.TILES[dt][0]) * b * used
         print(f'attention B={b} N={n} C={c} {str(dt)[6:]} splits {used} '
-              f'({-(-n // 64) * b * used} blocks): max_abs_err {err:.3e} '
+              f'({blocks} blocks): max_abs_err {err:.3e} '
               f'(tol {tol:.3e}) {"ok" if ok else "FAIL"}')
         rows.append(ok)
         if n == 4200 and splits is None:
             inputs[b, dt] = (q, k, v, err)
     times = {}
-    for b, dt in ((1, bf), (2, bf), (1, torch.float32)):
+    for b, dt in ((1, bf), (2, bf), (1, f32), (2, f32)):
         q, k, v, _ = inputs[b, dt]
         q4, k4, v4 = (t[:, None] for t in (q, k, v))
         def kernel():
@@ -139,9 +163,15 @@ def check_attention(gen):
     q, k, v, err = inputs[1, bf]
     plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v))
     print(f'attention B=1 N=4200 bf16: plain {plain_ms:.4f} ms')
+    # the f32 products on the FMA units, the bound of an f32 FMA kernel
+    fma_ms = {b: 4.0 * b * 4200 ** 2 * 256 / PEAK_FLOPS[f32] * 1e3
+              for b in (1, 2)}
+    print(f'attention N=4200 f32: the FMA units\' bound {fma_ms[1]:.4f} ms '
+          f'(B=1), {fma_ms[2]:.4f} ms (B=2)')
     ms, lib_ms, (bound, by), host = times[1, bf]
     ms2, lib_ms2, (bound2, _), _ = times[2, bf]
-    ms32, lib_ms32, (bound32, _), _ = times[1, torch.float32]
+    ms32, lib_ms32, (bound32, _), host32 = times[1, f32]
+    ms32_2, lib_ms32_2, (bound32_2, _), _ = times[2, f32]
     return all(rows), dict(
         name='fused_attention', route='cuda',
         source='arfe_tpu_torch/csrc/fused_attention.cu',
@@ -149,7 +179,11 @@ def check_attention(gen):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=by, library_ms=lib_ms, host_ms=host,
         ms_b2=ms2, library_ms_b2=lib_ms2, bound_ms_b2=bound2,
-        ms_f32=ms32, library_ms_f32=lib_ms32, bound_ms_f32=bound32)
+        max_abs_err_f32=inputs[1, f32][3], ms_f32=ms32,
+        library_ms_f32=lib_ms32, bound_ms_f32=bound32, host_ms_f32=host32,
+        ms_f32_b2=ms32_2, library_ms_f32_b2=lib_ms32_2,
+        bound_ms_f32_b2=bound32_2, bound_ms_f32_fma=fma_ms[1],
+        bound_ms_f32_fma_b2=fma_ms[2])
 
 
 def _test_rois(gen, num, batch, dev):
@@ -364,12 +398,74 @@ def check_roi_align_bwd(gen):
           f'({nbytes / 1e6:.1f} MB; {touched} distinct pixels of '
           f'{pixels}; the atomic adds\' read and write of them {extra / 1e6:.1f}'
           f' MB more, {extra / HBM_BYTES_PER_S * 1e3:.4f} ms)')
+    zero_ms = cuda_ms(lambda: [torch.zeros(s, device=dev) for s in shapes],
+                      graph=True)
+    print(f'roi_align_bwd: of its time, the zero fill of the f32 levels alone '
+          f'{zero_ms:.4f} ms')
+    step_ms, step_bound = _bf16_backward_ms(g, rois, lvls, shapes)
     return all(rows), dict(
         name='roi_align_bwd', route='cuda',
         source='arfe_tpu_torch/csrc/roi_align_bwd.cu',
         replaces='arfe_tpu/ops/pallas_roi_align.py:759',
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by='bytes', library_ms=None)
+        bound_by='bytes', library_ms=None, zero_fill_ms=zero_ms,
+        backward_bf16_ms=step_ms,
+        backward_bf16_bound_ms=step_bound)
+
+
+def _bf16_backward_ms(g, rois, lvls, shapes):
+    """What a bf16 training step pays for the RoIAlign gradient:
+    ``RoIAlignFunction.backward`` at bf16 levels (the bf16 cotangent cast to
+    f32, the zero fill, kernel C, each level's gradient cast to bf16), timed
+    by graph replay beside its bound (the bf16 cotangent read once, the bf16
+    level gradients written once)."""
+    from types import SimpleNamespace
+
+    from arfe_tpu_torch.ops import roi_align as ra
+    ctx = SimpleNamespace(
+        saved_tensors=(rois, lvls), args=((7, 7), (4, 8, 16, 32), 2, True),
+        levels=[(torch.Size(s), torch.bfloat16) for s in shapes])
+    g16 = g.to(torch.bfloat16)
+    ms = cuda_ms(lambda: ra.RoIAlignFunction.backward(ctx, g16), graph=True)
+    pixels = sum(b * h * w for b, h, w, _ in shapes)
+    bound = (g.numel() + pixels * shapes[0][3]) * 2 / HBM_BYTES_PER_S * 1e3
+    print(f'roi_align backward at bf16 levels (RoIAlignFunction.backward: '
+          f'casts, zero fill, kernel C) R={rois.shape[0]}: {ms:.4f} ms, '
+          f'bound {bound:.4f} ms')
+    return ms, bound
+
+
+def check_roi_align_bwd_step(args):
+    """Kernel C on the cotangent, RoIs and levels of the first bf16 training
+    step (bs2: 2 x 512 sampled RoIs, the positives clustered around the
+    ground truth, where the adds contend), against the plain version and
+    timed beside its bound."""
+    from arfe_tpu_torch.ops import roi_align as ra
+    g, rois, lvls, shapes = args
+    got = ra.roi_align_backward_cuda(g, rois, lvls, shapes)
+    want = ra.roi_align_backward_plain(g, rois, lvls, shapes)
+    scale = ra.roi_align_backward_plain(g.abs(), rois, lvls, shapes)
+    torch.cuda.synchronize()
+    ok, err = True, 0.0
+    for d, w, s in zip(got, want, scale):
+        diff = (d - w).abs()
+        ok = ok and bool((diff <= 1e-5 * s + 1e-7).all()) \
+            and bool(torch.isfinite(d).all())
+        err = max(err, diff.max().item())
+    ms = cuda_ms(lambda: ra.roi_align_backward_cuda(g, rois, lvls, shapes),
+                 graph=True)
+    pixels = sum(b * h * w for b, h, w, _ in shapes)
+    bound = (g.numel() + pixels * g.shape[-1]) * 4 / HBM_BYTES_PER_S * 1e3
+    touched = _touched_pixels(shapes, rois, lvls)
+    per_level = torch.bincount(lvls.long(), minlength=4).tolist()
+    print(f'roi_align_bwd on a training step\'s RoIs R={rois.shape[0]} '
+          f'(per level {per_level}, {touched} distinct pixels): max_abs_err '
+          f'{err:.3e} (tol 1e-5 sum|terms| + 1e-7) {"ok" if ok else "FAIL"}; '
+          f'kernel {ms:.4f} ms, bound {bound:.4f} ms')
+    step_ms, step_bound = _bf16_backward_ms(g, rois, lvls, shapes)
+    return ok, dict(ms_step_rois=ms, bound_ms_step_rois=bound,
+                    backward_bf16_ms_step_rois=step_ms,
+                    backward_bf16_bound_ms_step_rois=step_bound)
 
 
 def check_attention_grad(gen):
@@ -517,7 +613,8 @@ def reference_check(model):
 def train():
     """Four bs2 bf16 steps and one bs2 f32 step at 800x1344. Returns the
     model, its parameters before the first step, the kernel launches of the
-    run, and whether every step gave
+    run, kernel C's arguments in the first step, and whether every step
+    gave
     finite losses and launched all three kernels, the frozen parameters
     stayed without a gradient, and every trainable tensor moved, but for
     those whose gradient was exactly 0 in every step (named)."""
@@ -548,6 +645,15 @@ def train():
         sampled['weights'] = out[1]
         return out
     rpn._targets = keep_weights
+    # kernel C's cotangent, RoIs and levels in the first step, for timing
+    kernel_c, step_args = ra.roi_align_backward_cuda, []
+
+    def keep_args(g, rois, lvls, shapes, *args, **kwargs):
+        if not step_args:
+            step_args.extend((g.clone(), rois.clone(), lvls.clone(),
+                              [tuple(s) for s in shapes]))
+        return kernel_c(g, rois, lvls, shapes, *args, **kwargs)
+    ra.roi_align_backward_cuda = keep_args
     gen = torch.Generator(device='cuda').manual_seed(4)
     ok = True
     fa.launches = ra.launches = ra.bwd_launches = 0
@@ -577,6 +683,7 @@ def train():
               f'roi_align_bwd {grew[2]}, RPN anchors sampled at stride '
               f'{top_stride[0]} {top} {"ok" if good else "FAIL"}')
     del rpn._targets
+    ra.roi_align_backward_cuda = kernel_c
     launches = {'fused_attention': fa.launches, 'roi_align': ra.launches,
                 'roi_align_bwd': ra.bwd_launches}
     frozen_moved = [k for k in before if k not in had_grad and (
@@ -601,7 +708,7 @@ def train():
               'outputs positive before the ReLU and of those unsaturated by '
               'tanh (reduce_convs: positive, unsaturated; reduce_convs2: the '
               f'same; of): {reduce_conv_activity(model, batch["img"])}')
-    return model, before, launches, ok and good
+    return model, before, launches, step_args, ok and good
 
 
 def reduce_conv_activity(model, img):
@@ -706,13 +813,15 @@ def main():
     ok_ref = reference_check(model)
     del model
     torch.cuda.empty_cache()
-    model, start, launches, ok_train = train()
+    model, start, launches, step_args, ok_train = train()
+    ok_step_rois, row_step = check_roi_align_bwd_step(step_args)
+    rows[2].update(row_step)
     ok_train_ref = train_reference_check(model, start)
     for row in rows:
         row['launches'] = launches[row['name']]
         row['launches_serve'] = launches_serve.get(row['name'], 0)
     if not (ok_kernels and ok_serve and ok_ref and ok_train
-            and ok_train_ref):
+            and ok_step_rois and ok_train_ref):
         print('chip_smoke: a phase failed', file=sys.stderr)
         return 1
     print(json.dumps({'kernels': rows}))

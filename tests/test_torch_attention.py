@@ -135,7 +135,69 @@ def test_key_splits_fill_the_card(b, n, want):
         assert tiles * b * splits >= 2 * 132
 
 
+@pytest.mark.parametrize('b,n,want', [(1, 4200, 4), (2, 4200, 2),
+                                      (1, 77, 3)])
+def test_key_splits_fill_the_card_f32(b, n, want):
+    """The f32 kernel (128 query rows and 32 keys per tile, one block per
+    SM): B=1 at N=4200 gets four splits (132 blocks), B=2 two; no split is
+    ever left without a key tile."""
+    splits = fa.key_splits(b, n, 132, torch.float32)
+    assert splits == want
+    query_tile, key_tile, _ = fa.TILES[torch.float32]
+    tiles = -(-n // key_tile)
+    per = -(-tiles // splits)
+    assert (splits - 1) * per < tiles
+    if n == 4200:
+        assert -(-n // query_tile) * b * splits == 132
+
+
 def test_key_tile_is_the_kernels_tile():
-    """``key_splits`` counts key tiles of the bf16 kernel's own width."""
-    src = Path(fa.__file__).parent.parent / 'csrc' / 'fused_attention.cu'
-    assert f'constexpr int BK = {fa.KEY_TILE};' in src.read_text()
+    """``key_splits`` counts tiles of each kernel's own size."""
+    src = (Path(fa.__file__).parent.parent / 'csrc'
+           / 'fused_attention.cu').read_text()
+    for dtype, (bq, bk) in ((torch.bfloat16, ('BQ', 'BK')),
+                            (torch.float32, ('BQ32', 'BK32'))):
+        query_tile, key_tile, _ = fa.TILES[dtype]
+        assert f'constexpr int {bq} = {query_tile};' in src
+        assert f'constexpr int {bk} = {key_tile};' in src
+
+
+def _tf32(x, nearest=True):
+    """f32 to tf32, as ``cvt.rna.tf32.f32`` rounds (to nearest on the low 13
+    mantissa bits, ties away from zero) or as the tensor cores read an f32
+    operand (``nearest=False``: the low 13 bits dropped)."""
+    bits = x.contiguous().view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, passes):
+    """``a @ b`` in TF32 as the f32 kernel takes it: one pass rounds both
+    operands to tf32; three split each into big = tf32(x) + small = x - big
+    (read with its low bits dropped) and add small*big, big*small and
+    big*big. The products of tf32 values are exact; they are summed in f64,
+    so that only the tf32 rounding differs from the exact product."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big.double() @ b_big.double()
+    a_small = _tf32(a - a_big, nearest=False)
+    b_small = _tf32(b - b_big, nearest=False)
+    return (a_small.double() @ b_big.double() + a_big.double()
+            @ b_small.double() + a_big.double() @ b_big.double())
+
+
+@pytest.mark.parametrize('passes,within', [(3, True), (1, False)])
+def test_attention_needs_three_tf32_products(passes, within):
+    """The f32 kernel's arithmetic, emulated: at the card check's inputs
+    (randn q, k, v, C = 256; N = 600) attention with both products in
+    3xTF32 stays within the f32 tolerance (1e-4) of ``attention_plain``,
+    and with one TF32 product it does not (its logits, which reach ~100,
+    keep 10 mantissa bits): why the kernel takes three products. (The f32
+    sums of ``attention_plain`` itself are ~3e-5 off the exact result.)"""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 600, 256, 5))
+    s = _tf32_product(q, k.transpose(-1, -2), passes)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    got = _tf32_product(p.float(), v, passes) / p.sum(-1, keepdim=True)
+    err = (got - fa.attention_plain(q, k, v).double()).abs().max().item()
+    assert (err <= 1e-4) == within, err

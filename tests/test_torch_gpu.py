@@ -66,6 +66,34 @@ def test_attention_kernel_empty_split_adds_nothing(cuda, n, c):
     assert (got - ref).abs().max().item() <= 2.0 ** -8 * v.abs().max().item()
 
 
+# f32 (3xTF32 with the key split): (2, 4200) the bs2 training step's
+# shape with two splits, (1, 77) three splits of one 32-key tile each,
+# (3, 130, 128) and (1, 600, 128) ragged tiles at other widths
+@pytest.mark.parametrize('b,n,c', [(2, 4200, 256), (1, 77, 256),
+                                   (3, 130, 128), (1, 600, 128)])
+def test_attention_f32_kernel_matches_plain(cuda, b, n, c):
+    gen = torch.Generator(device=cuda).manual_seed(n + c + 1)
+    q, k, v = (torch.randn((b, n, c), generator=gen, device=cuda)
+               for _ in range(3))
+    before = fa.launches
+    got = fa.fused_softmax_attention(q, k, v)
+    assert fa.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert (got - fa.attention_plain(q, k, v)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize('n,c,splits', [(77, 256, 4), (64, 64, 3)])
+def test_attention_f32_kernel_empty_split_adds_nothing(cuda, n, c, splits):
+    """f32 splits count 32-key tiles: N=77 has three, N=64 two, so the
+    last of ``splits`` has no key and the merge must skip it."""
+    gen = torch.Generator(device=cuda).manual_seed(n + 2)
+    q, k, v = (torch.randn((1, n, c), generator=gen, device=cuda)
+               for _ in range(3))
+    got = fa._launch(q, k, v, None, splits)
+    assert bool(torch.isfinite(got).all())
+    assert (got - fa.attention_plain(q, k, v)).abs().max().item() <= 1e-4
+
+
 def test_launch_counters_move_by_one_per_call(cuda):
     """One wrapper call is one launch on its counter, whatever it runs:
     kernel A split with its merge kernel, A unsplit, A in f32, kernel B."""
@@ -138,6 +166,18 @@ def test_roi_align_kernel_rejects_channels_off_the_vector(cuda):
     with pytest.raises(ValueError):
         ra.roi_align_cuda(feats, rois, ra.map_roi_levels(rois, 4))
     assert ra.launches == before
+
+
+def test_roi_align_backward_kernel_rejects_channels_off_the_vector(cuda):
+    """Kernel C adds 4 channels of a pixel as one 16-byte vector: 6
+    channels raise, with no fallback."""
+    rois = _rois(torch.Generator(device=cuda).manual_seed(0), cuda)
+    g = torch.randn((rois.shape[0], 7, 7, 6), device=cuda)
+    before = ra.bwd_launches
+    with pytest.raises(ValueError):
+        ra.roi_align_backward_cuda(g, rois, ra.map_roi_levels(rois, 4),
+                                   _level_shapes(6))
+    assert ra.bwd_launches == before
 
 
 def _tiny_cfg():
@@ -277,8 +317,12 @@ def test_train_step_on_card_matches_cpu(cuda):
     within 1e-4 + 4x the CPU's own relative spread (one thread against
     all), each parameter's largest gradient difference within 5e-2 of its
     largest |g| (rounding alone moves some by ~1e-2 at random weights; a
-    wrong kernel differs by O(1))."""
+    wrong kernel differs by O(1)). The weights are seeded: at some random
+    weights an AR-FPN attention-map conv, whose gradient passes through a
+    few unsaturated tanh outputs, differs by more than that between two
+    summation orders, whatever the kernels."""
     cfg = _tiny_cfg()
+    torch.manual_seed(0)
     cpu = init_detector(cfg, device='cpu', train=True)
     with torch.no_grad():
         cpu.neck[1].refine.conv_out.conv.weight.normal_(0, 0.02)

@@ -155,6 +155,56 @@ def test_roi_align_pyramid_gradient_reaches_levels(dtype):
         assert torch.equal(d, w.to(dtype))
 
 
+def _axis_footprint(i0, i1, w0, w1, valid, out, sn):
+    """One axis of one RoI as kernel C reduces it: the distinct pixels
+    (sorted) that the corners of its valid samples touch, and the (out,
+    pixels) weight of each bin on them, its samples' corner weights summed
+    (zero for an invalid sample)."""
+    pix = torch.unique(torch.cat([i0[valid], i1[valid]]))
+    weights = torch.zeros((out, len(pix)))
+    bins = torch.arange(out * sn) // sn
+    for idx, wgt in ((i0, w0), (i1, w1)):
+        weights.index_put_((bins[valid], torch.searchsorted(pix, idx[valid])),
+                           wgt[valid], accumulate=True)
+    return pix, weights
+
+
+@pytest.mark.parametrize('shift', [0, 1, -1])
+def test_separable_footprint_matches_plain(shift):
+    """Kernel C's design on the CPU: each RoI adds Wy^T g Wx / sn^2 over the
+    distinct rows and columns its samples touch, at most 2 * 7 * 2 = 28 of
+    each however large the box, and the sum over RoIs equals
+    ``roi_align_backward_plain`` (every kind of box of ``_edge_rois``:
+    inverted, empty, on and past the border, fully outside; levels shifted
+    off the scale's)."""
+    c, sn = 8, 2
+    rois = _edge_rois(50)
+    trois = torch.from_numpy(rois)
+    tlvls = torch.from_numpy(_levels(rois, shift))
+    g = torch.from_numpy(_cotangent(len(rois), c, 51))
+    shapes = [(2, IMG_H // s, IMG_W // s, c) for s in STRIDES]
+    sizes = [b * h * w for b, h, w, _ in shapes]
+    ys, xs, base, width = ra.axis_samples([s[:3] for s in shapes], trois,
+                                          tlvls, (7, 7), STRIDES, sn)
+    table = torch.zeros((sum(sizes), c))
+    footprints = []
+    for r in range(len(rois)):
+        rows, wy = _axis_footprint(*(t[r] for t in ys), 7, sn)
+        cols, wx = _axis_footprint(*(t[r] for t in xs), 7, sn)
+        assert len(rows) <= 2 * 7 * sn and len(cols) <= 2 * 7 * sn
+        footprints.append(len(rows) * len(cols))
+        part = torch.einsum('pi,pqc,qj->ijc', wy, g[r], wx) / sn ** 2
+        idx = base[r] + rows[:, None] * width[r] + cols[None, :]
+        table.index_add_(0, idx.reshape(-1), part.reshape(-1, c))
+    # the fully outside box touches nothing; small boxes share pixels
+    assert min(footprints) == 0 and 0 < sorted(footprints)[1] < 14 * 14
+    want = ra.roi_align_backward_plain(g, trois, tlvls, shapes, (7, 7),
+                                       STRIDES, sn)
+    for d, w in zip(table.split(sizes), want):
+        np.testing.assert_allclose(d.reshape(w.shape).numpy(), w.numpy(),
+                                   atol=1e-5)
+
+
 def test_backward_wrapper_refuses_cpu_tensors():
     feats = _feats(8, 40)
     rois = torch.from_numpy(_edge_rois(41))
