@@ -36,9 +36,12 @@
 // addresses, and 0 * f adds nothing, as in the plain version's weights. The
 // block has channels / 8 x P threads, P bins at a time, with P chosen so
 // the passes over the 7 x 7 bins are even (224 threads at C = 256).
-// Accumulation is f32 in the plain version's order per sample (corner 00,
-// 01, 10, 11, then the next sample); the output is written in the feature
-// dtype.
+// Accumulation is f32 in the plain version's order (corner 00, 01, 10, 11
+// of a sample, then the sample into the bin's sum, samples row by row),
+// each product and sum rounded on its own (__fmul_rn, __fadd_rn: no
+// contraction into fused multiply-adds), as the plain version's tensor ops
+// round them, so f32 outputs equal the plain version's at any magnitude; the
+// output is written in the feature dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -148,11 +151,11 @@ roi_align_kernel(arfe::Levels lv, const float* __restrict__ rois,
         load8(row1 + x1, f11);
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-          float val = w00 * f00[c];
-          val += w01 * f01[c];
-          val += w10 * f10[c];
-          val += w11 * f11[c];
-          acc[c] += val;
+          float val = __fmul_rn(w00, f00[c]);
+          val = __fadd_rn(val, __fmul_rn(w01, f01[c]));
+          val = __fadd_rn(val, __fmul_rn(w10, f10[c]));
+          val = __fadd_rn(val, __fmul_rn(w11, f11[c]));
+          acc[c] = __fadd_rn(acc[c], val);
         }
       }
     }

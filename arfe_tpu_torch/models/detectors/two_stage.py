@@ -51,14 +51,15 @@ class TwoStageDetector(nn.Module):
         shared = [self.rpn_head.shared_single(f) for f in x]
         losses = self.rpn_head.loss_from_shared(shared, gt_bboxes, gt_valid,
                                                 img_shapes, gen)
-        # proposals from the detached shared features: no gradient flows
-        # through them
-        with torch.no_grad():
-            props, prop_valid = self.rpn_head.get_proposals(
-                x, img_shapes,
-                cfg=self.train_cfg.get('rpn_proposal')
-                or self.test_cfg.get('rpn'),
-                shared=[s.detach() for s in shared])
+        # proposals from the detached shared features, as the JAX package
+        # computes them: the 1x1 heads' weights stay in the graph, so the RoI
+        # head's box targets send a gradient through the decoded proposals
+        # into rpn_reg (the RoI extraction gives the RoIs none)
+        props, prop_valid = self.rpn_head.get_proposals(
+            x, img_shapes,
+            cfg=self.train_cfg.get('rpn_proposal')
+            or self.test_cfg.get('rpn'),
+            shared=[s.detach() for s in shared])
         losses.update(self.roi_head.forward_train(
             x, props, prop_valid, gt_bboxes, gt_valid, gt_labels, gen))
         return losses

@@ -5,6 +5,10 @@ The target level of every RoI is computed here, from the RoIs or from
 ``replace_rois``, shifted by ``lvl``, and always handed to
 :func:`roi_align_pyramid`; ``roi_scale_factor`` rescales the boxes after
 their levels are fixed. So every argument reaches the CUDA kernel.
+
+The RoIs get no gradient: they are detached here, so the CPU's plain path
+gives what :class:`RoIAlignFunction` gives on the card, and what the JAX
+package's kernel path gives (``arfe_tpu/ops/pallas_roi_align.py:407-435``).
 """
 from __future__ import annotations
 
@@ -51,6 +55,9 @@ class SingleRoIExtractor(nn.Module):
     def forward(self, feats, rois, roi_scale_factor=None, lvl=None,
                 replace_rois=None):
         """feats: per-level (B, C, H, W); rois (R, 5) -> (R, oh, ow, C)."""
+        rois = rois.detach()
+        if replace_rois is not None:
+            replace_rois = replace_rois.detach()
         num_levels = self.num_inputs
         lvl_src = replace_rois if replace_rois is not None else rois
         target_lvls = map_roi_levels(lvl_src, num_levels, self.finest_scale)

@@ -2,16 +2,25 @@
 ``arfe_tpu/models/roi_heads/standard_roi_head.py:20-124,146-217,264-341``):
 proposals in as (B, P, 5) with a validity mask. Inference gives detections
 with fixed capacity; training assigns and samples every image's candidates
-into ``num`` fixed slots and returns the bbox losses. The AR-RFF
-``multi_rois`` extraction, OHEM and masks are not ported here.
+into ``num`` fixed slots and returns the bbox losses.
+
+With ``multi_rois`` (AR-RFF; on by default for a head with
+``num_roi_groups == 3``) each RoI is extracted three times, as itself and
+stretched by ``get_adaptive_scale_rois``, in one RoIAlign call over the 3R
+RoIs, each on the level of its own box, and the three blocks are
+concatenated channel-wise as [ori, lw, lh]. A head with ``with_multi_cls``
+("+fac") also returns per-image presence logits, trained against the
+classes of each image's sampled RoIs. OHEM and masks are not ported here.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...registry import BBOX_ASSIGNERS, BBOX_SAMPLERS, HEADS, build_from_cfg
 from ..builder import build_head, build_roi_extractor
+from ..utils.additional import get_adaptive_scale_rois
 
 
 def _rows(table, inds):
@@ -22,11 +31,16 @@ def _rows(table, inds):
 
 @HEADS.register_module()
 class StandardRoIHead(nn.Module):
-    def __init__(self, bbox_roi_extractor, bbox_head, train_cfg=None,
-                 test_cfg=None):
+    def __init__(self, bbox_roi_extractor, bbox_head, multi_rois=None,
+                 adaptive_scale_fac=1.0, train_cfg=None, test_cfg=None):
         super().__init__()
         self.bbox_roi_extractor = build_roi_extractor(bbox_roi_extractor)
         self.bbox_head = build_head(bbox_head)
+        if multi_rois is None:
+            multi_rois = getattr(self.bbox_head, 'num_roi_groups', 1) == 3
+        self.multi_rois = multi_rois
+        self.adaptive_scale_fac = adaptive_scale_fac
+        self.with_multi_cls = getattr(self.bbox_head, 'with_multi_cls', False)
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
         if train_cfg is not None:
@@ -34,9 +48,21 @@ class StandardRoIHead(nn.Module):
                                            BBOX_ASSIGNERS)
             self.sampler = build_from_cfg(train_cfg['sampler'], BBOX_SAMPLERS)
 
-    def _bbox_forward(self, feats, rois):
-        bbox_feats = self.bbox_roi_extractor(
-            feats[:self.bbox_roi_extractor.num_inputs], rois)
+    def _bbox_forward(self, feats, rois, num_imgs=1):
+        """The head's outputs for (R, 5) RoIs of ``num_imgs`` images:
+        (cls_score, bbox_pred), and multi_cls for a "+fac" head."""
+        extractor = self.bbox_roi_extractor
+        lvl_feats = feats[:extractor.num_inputs]
+        if self.multi_rois:
+            lh_rois, lw_rois = get_adaptive_scale_rois(
+                rois, self.adaptive_scale_fac)
+            all_feats = extractor(lvl_feats,
+                                  torch.cat([rois, lw_rois, lh_rois]))
+            bbox_feats = torch.cat(all_feats.chunk(3), dim=-1)
+        else:
+            bbox_feats = extractor(lvl_feats, rois)
+        if self.with_multi_cls:
+            return self.bbox_head(bbox_feats, num_imgs=num_imgs)
         return self.bbox_head(bbox_feats)
 
     # ------------------------------------------------------------------
@@ -81,7 +107,8 @@ class StandardRoIHead(nn.Module):
             gt_bboxes: (B, G, 4) padded; gt_valid (B, G); gt_labels (B, G).
             gen: the ``torch.Generator`` of the sampler's priorities.
         Returns:
-            dict of ``loss_cls``, ``acc`` and ``loss_bbox``.
+            dict of ``loss_cls``, ``acc`` and ``loss_bbox``, and
+            ``loss_multi_cls`` for a "+fac" head.
         """
         boxes, assigned, max_overlaps = self._assign(proposals, prop_valid,
                                                      gt_bboxes, gt_valid)
@@ -94,16 +121,22 @@ class StandardRoIHead(nn.Module):
                                   device=boxes.device)[:, None, None]
         rois = torch.cat([batch_inds.expand(b, s, 1), boxes],
                          dim=-1).reshape(b * s, 5)
-        cls_score, bbox_pred = self._bbox_forward(feats, rois)
+        out = self._bbox_forward(feats, rois, num_imgs=b)
         labels, label_weights, bbox_targets, bbox_weights = \
             self.bbox_head.get_targets(
                 boxes, sampled['gt_boxes'], sampled['labels'],
                 sampled['is_pos'], sampled['valid'],
                 self.train_cfg.get('pos_weight', -1))
+        loss_kw = {}
+        if self.with_multi_cls:
+            # each image's classes among its weighted slots, background too
+            onehot = F.one_hot(labels, self.bbox_head.num_classes + 1)
+            presence = (onehot * label_weights[..., None]).sum(dim=1) > 0
+            loss_kw = dict(multi_cls=out[2], presence=presence.int())
         return self.bbox_head.loss(
-            cls_score, bbox_pred, labels.reshape(-1),
+            out[0], out[1], labels.reshape(-1),
             label_weights.reshape(-1), bbox_targets.reshape(-1, 4),
-            bbox_weights.reshape(-1, 4))
+            bbox_weights.reshape(-1, 4), **loss_kw)
 
     # ------------------------------------------------------------------
     # inference
@@ -120,7 +153,8 @@ class StandardRoIHead(nn.Module):
                                   device=proposals.device)[:, None, None]
         rois = torch.cat([batch_inds.expand(b, p, 1), proposals[..., :4]],
                          dim=-1).reshape(b * p, 5)
-        cls_score, bbox_pred = self._bbox_forward(feats, rois)
+        cls_score, bbox_pred = self._bbox_forward(feats, rois,
+                                                  num_imgs=b)[:2]
         cls_score = cls_score.reshape(b, p, -1)
         if bbox_pred is not None:
             bbox_pred = bbox_pred.reshape(b, p, -1)

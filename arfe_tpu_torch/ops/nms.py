@@ -55,7 +55,8 @@ def nms_batched(boxes, scores, iou_threshold, max_out=None, valid_mask=None):
     svalid = torch.isfinite(sscores)
     sboxes = torch.gather(boxes.float(), 1, order[..., None].expand(p, n, 4))
     sboxes = sboxes * svalid[..., None]
-    keep = _greedy_keep(sboxes, svalid, iou_threshold)
+    # the keep mask takes no gradient: no graph for the IoU matrix
+    keep = _greedy_keep(sboxes.detach(), svalid, iou_threshold)
 
     kept_scores = torch.where(keep, sscores, float('-inf'))
     k = min(max_out, n)

@@ -161,8 +161,16 @@ def roi_align_pyramid_plain(feats, rois, target_lvls, out_size=(7, 7),
         term = table[idx.reshape(-1)].float().reshape(r, -1, c) \
             * wgt.reshape(r, -1, 1)
         out = term if out is None else out + term
-    out = out.reshape(r, oh, sn, ow, sn, c).sum(dim=(2, 4)) / float(sn * sn)
-    return out.to(feats[0].dtype)
+    # each bin's samples added one by one, row by row, as the kernel adds
+    # them (a reduction's order is the library's)
+    out = out.reshape(r, oh, sn, ow, sn, c)
+    acc = None
+    for sy in range(sn):
+        for sx in range(sn):
+            acc = out[:, :, sy, :, sx] if acc is None \
+                else acc + out[:, :, sy, :, sx]
+    acc = acc / torch.full((), float(sn * sn), device=acc.device)
+    return acc.to(feats[0].dtype)
 
 
 def roi_align_backward_plain(g, rois, target_lvls, level_shapes,

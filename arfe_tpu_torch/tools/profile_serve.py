@@ -1,9 +1,11 @@
-"""Where the time of one flagship request goes, on the card.
+"""Where the time of one request goes, on the card.
 
-    python -m arfe_tpu_torch.tools.profile_serve [--batch 1]
+    python -m arfe_tpu_torch.tools.profile_serve [--batch 1] [--config PATH]
 
-Serves the flagship Faster R-CNN R50 + AR-FPN at 800x1344 in bf16 with
-seeded random weights (as ``chip_smoke.py`` does) and prints, over five
+Serves a detector (by default the flagship Faster R-CNN R50 + AR-FPN,
+``configs/_base_/models/faster_rcnn_r50_arfpn.py``; the AR-RFF flagship is
+``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``) at 800x1344 in bf16
+with seeded random weights (as ``chip_smoke.py`` does) and prints, over five
 requests after two warm-up requests:
 
 - the wall time per request and of its stages (backbone + necks, RPN
@@ -43,6 +45,7 @@ def _busy_us(events):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=1)
+    ap.add_argument('--config', default=CFG)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_serve: no CUDA device')
@@ -50,7 +53,8 @@ def main():
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    model = init_detector(CFG)
+    model = init_detector(args.config)
+    print(f'config {os.path.relpath(args.config)}')
     gen = torch.Generator(device='cuda').manual_seed(0)
     b = args.batch
     img = (torch.randn((b, 800, 1344, 3), generator=gen, device='cuda')

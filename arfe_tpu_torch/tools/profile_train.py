@@ -1,13 +1,15 @@
-"""Where the time of one flagship training step goes, on the card.
+"""Where the time of one training step goes, on the card.
 
     python -m arfe_tpu_torch.tools.profile_train [--batch 2] [--dtype f32]
+        [--config PATH]
 
-Trains the flagship Faster R-CNN R50 + AR-FPN at 800x1344 in bf16 (or f32:
-``--dtype f32``) with
-seeded random weights, the bench's synthetic batch (8 gt boxes of 30-80 px
-per image, ``bench.py:170-185``) and its SGD schedule (``bench.py:163-168``),
-both from ``arfe_tpu_torch.train.bench`` as in ``chip_smoke.py``, and
-prints, over five steps after two warm-up steps:
+Trains a detector (by default the flagship Faster R-CNN R50 + AR-FPN; the
+AR-RFF flagship is ``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``)
+at 800x1344 in bf16 (or f32: ``--dtype f32``) with seeded random weights,
+the bench's synthetic batch (8 gt boxes of 30-80 px per image,
+``bench.py:170-185``) and its SGD schedule (``bench.py:163-168``), both
+from ``arfe_tpu_torch.train.bench`` as in ``chip_smoke.py``, and prints,
+over five steps after two warm-up steps:
 
 - the wall time per step and of its stages (forward + losses, backward,
   optimizer update), each closed by a device synchronisation;
@@ -18,6 +20,7 @@ prints, over five steps after two warm-up steps:
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import time
 
@@ -31,13 +34,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=2)
     ap.add_argument('--dtype', choices=('bf16', 'f32'), default='bf16')
+    ap.add_argument('--config', default=bench.FLAGSHIP_CFG)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_train: no CUDA device')
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    model, opt, scheduler, _ = bench.build_trainer()
+    model, opt, scheduler, _ = bench.build_trainer(args.config)
+    print(f'config {os.path.relpath(args.config)}')
     gen = torch.Generator(device='cuda').manual_seed(0)
     b = args.batch
     batch = bench.synthetic_batch(b, dtype=torch.bfloat16

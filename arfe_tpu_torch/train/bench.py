@@ -24,9 +24,14 @@ from .optimizer import (build_lr_schedule, build_optimizer,
                         frozen_prefixes_from_cfg)
 from .train_step import parse_losses
 
-FLAGSHIP_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..',
-                            '..', 'configs', '_base_', 'models',
+_CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..',
+                        '..', 'configs')
+FLAGSHIP_CFG = os.path.join(_CONFIGS, '_base_', 'models',
                             'faster_rcnn_r50_arfpn.py')
+#: the AR-RFF flagship (config #4) and the "+fac" detector
+ARFE_CFGS = {name: os.path.join(_CONFIGS, 'arfe',
+                                f'faster_rcnn_r50_arfpn_{name}_1x_coco.py')
+             for name in ('arrff', 'fac')}
 H, W = 800, 1344             # the bench's padded image (bench.py:28)
 IMG_SHAPE = (800.0, 1333.0)  # its content shape (bench.py:90)
 BATCH_KEYS = ('img', 'img_shape', 'gt_bboxes', 'gt_valid', 'gt_labels')

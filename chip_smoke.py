@@ -18,7 +18,7 @@
    (``configs/_base_/models/faster_rcnn_r50_arfpn.py``) at full width on
    ``cuda`` with seeded random weights: four bs1 and two bs2 requests at
    800x1344 in bf16, and two bs1 requests in f32. Every request must launch
-   the attention and the RoIAlign forward kernels.
+   the attention and the RoIAlign forward kernels once each.
 4. Checks the served detector against the same weights on the CPU (plain
    path) on a small image.
 5. Trains the flagship at full width with the bench's SGD schedule and
@@ -31,15 +31,37 @@
 6. Checks one f32 training step on the card against the same weights (the
    trainer's seeded starting weights) and sampling priorities on the CPU
    (plain path) on a small image: losses and gradients.
+7. Serves the AR-RFF flagship (config #4,
+   ``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``) at full width:
+   two bs1 and two bs2 requests in bf16 and two bs1 in f32. Each request
+   must launch kernel A once and kernel B exactly once, over its 3P triple
+   RoIs [ori, lw, lh]; then checks it against the CPU as in 4.
+8. Holds kernel B against its plain version on the triple RoIs, levels and
+   features of the first bs1 and bs2 requests (R = 3000, 6000) in bf16 and
+   f32, times both, and prints how many RoIs reach past the image and how
+   they spread over the levels.
+9. Trains AR-RFF at full width, bs2: two bf16 steps and one f32. Each step
+   launches A, B and C once; the frozen stem and layer1 stay; the fusion
+   convs (``hh_conv``, ``wh_conv``, ``final_conv``) move. Holds kernel C
+   against its plain version on the first step's cotangent and triple RoIs
+   (R = 3072) and times both; then a training step against the CPU as in 6.
+10. Serves the "+fac" detector
+    (``configs/arfe/faster_rcnn_r50_arfpn_fac_1x_coco.py``): two bs1 bf16
+    requests, then against the CPU as in 4.
+11. Trains "+fac": two bs2 bf16 steps with a finite ``loss_multi_cls``,
+    then a training step against the CPU as in 6.
 
-Prints one JSON line of kernel numbers (``launches`` counts the training
-run, ``launches_serve`` the serving run), then the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
-non-zero, with no result line, if there is no CUDA device or any phase
-fails.
+Prints each phase's wall seconds and the total, one JSON line of kernel
+numbers (``launches`` counts the flagship's training run,
+``launches_serve`` its serving run, ``launches_{arrff,fac}_{serve,train}``
+those of AR-RFF and "+fac"; the ``_arrff_r*`` keys are kernels B and C at
+AR-RFF's shapes), then the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, if
+there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -209,6 +231,31 @@ def _test_rois(gen, num, batch, dev):
     return torch.stack([b, x1, y1, x2, y2], 1).contiguous()
 
 
+def _roi_align_agrees(got, ref, rois, lvls, what):
+    """Whether kernel B's output is within its tolerance of the plain
+    version's (printed), and the largest difference."""
+    d = (got.float() - ref.float()).abs()
+    err = d.max().item()
+    # f32: the same f32 arithmetic up to FMA contraction in the sum.
+    # bf16: both sum the same bf16 inputs in f32; a value near a rounding
+    # boundary may round to the neighbour, one bf16 ulp (2^-7 relative).
+    if got.dtype == torch.float32:
+        allowed, tol = torch.full_like(d, 1e-5), '1e-5'
+    else:
+        allowed, tol = 2.0 ** -7 * ref.float().abs() + 1e-6, \
+            '2^-7 |ref| + 1e-6'
+    good = bool((d <= allowed).all()) and bool(torch.isfinite(got).all())
+    print(f'roi_align {what} {str(got.dtype)[6:]}: max_abs_err {err:.3e} '
+          f'(tol {tol}) {"ok" if good else "FAIL"}')
+    if not good:
+        worst = int((d - allowed).flatten().argmax())
+        r = worst // d[0].numel()
+        print(f'  worst at roi {r} {rois[r].tolist()} level {int(lvls[r])}: '
+              f'got {got.flatten()[worst].item()} ref '
+              f'{ref.flatten()[worst].item()}')
+    return good, err
+
+
 def _roi_align_case(gen, num, batch, strides=(4, 8, 16, 32)):
     """Kernel B vs ``roi_align_pyramid_plain`` for ``num`` RoIs over 4
     levels of (batch, 800/s, 1344/s, 256), in f32 and bf16; half the levels
@@ -229,25 +276,8 @@ def _roi_align_case(gen, num, batch, strides=(4, 8, 16, 32)):
         ref = ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7), strides,
                                          2, True)
         torch.cuda.synchronize()
-        d = (got.float() - ref.float()).abs()
-        err = d.max().item()
-        # f32: the same f32 arithmetic up to FMA contraction in the sum.
-        # bf16: both sum the same bf16 inputs in f32; a value near a rounding
-        # boundary may round to the neighbour, one bf16 ulp (2^-7 relative).
-        if dt == torch.float32:
-            allowed, tol = torch.full_like(d, 1e-5), '1e-5'
-        else:
-            allowed, tol = 2.0 ** -7 * ref.float().abs() + 1e-6, \
-                '2^-7 |ref| + 1e-6'
-        good = bool((d <= allowed).all()) and bool(torch.isfinite(got).all())
-        print(f'roi_align R={num} B={batch} {str(dt)[6:]}: max_abs_err '
-              f'{err:.3e} (tol {tol}) {"ok" if good else "FAIL"}')
-        if not good:
-            worst = int((d - allowed).flatten().argmax())
-            r = worst // d[0].numel()
-            print(f'  worst at roi {r} {rois[r].tolist()} level '
-                  f'{int(lvls[r])}: got {got.flatten()[worst].item()} ref '
-                  f'{ref.flatten()[worst].item()}')
+        good, err = _roi_align_agrees(got, ref, rois, lvls,
+                                      f'R={num} B={batch}')
         ok = ok and good
         kept[dt] = (feats, rois, lvls, err)
     return ok, kept
@@ -435,11 +465,12 @@ def _bf16_backward_ms(g, rois, lvls, shapes):
     return ms, bound
 
 
-def check_roi_align_bwd_step(args):
+def check_roi_align_bwd_step(args, key='_step_rois', plain=False):
     """Kernel C on the cotangent, RoIs and levels of the first bf16 training
     step (bs2: 2 x 512 sampled RoIs, the positives clustered around the
-    ground truth, where the adds contend), against the plain version and
-    timed beside its bound."""
+    ground truth, where the adds contend; three times as many in AR-RFF),
+    against the plain version and timed beside its bound (and the plain
+    version's time with ``plain``). The row's keys end in ``key``."""
     from arfe_tpu_torch.ops import roi_align as ra
     g, rois, lvls, shapes = args
     got = ra.roi_align_backward_cuda(g, rois, lvls, shapes)
@@ -463,9 +494,14 @@ def check_roi_align_bwd_step(args):
           f'{err:.3e} (tol 1e-5 sum|terms| + 1e-7) {"ok" if ok else "FAIL"}; '
           f'kernel {ms:.4f} ms, bound {bound:.4f} ms')
     step_ms, step_bound = _bf16_backward_ms(g, rois, lvls, shapes)
-    return ok, dict(ms_step_rois=ms, bound_ms_step_rois=bound,
-                    backward_bf16_ms_step_rois=step_ms,
-                    backward_bf16_bound_ms_step_rois=step_bound)
+    row = {'max_abs_err': err, 'ms': ms, 'bound_ms': bound,
+           'backward_bf16_ms': step_ms, 'backward_bf16_bound_ms': step_bound}
+    if plain:
+        row['plain_ms'] = cuda_ms(lambda: ra.roi_align_backward_plain(
+            g, rois, lvls, shapes), iters=5)
+        print(f'roi_align_bwd R={rois.shape[0]}: plain {row["plain_ms"]:.4f}'
+              ' ms')
+    return ok, {k + key: v for k, v in row.items()}
 
 
 def check_attention_grad(gen):
@@ -516,38 +552,47 @@ def check_kernels():
 # phase 3: serve the flagship at full width
 # --------------------------------------------------------------------------
 
-def build_detector():
-    """The flagship on the card with seeded random weights; the NonLocal
+def build_detector(cfg=FLAGSHIP_CFG, cls_scale=None):
+    """A detector on the card with seeded random weights; the NonLocal
     ``conv_out`` (zero at init) is made nonzero so the attention reaches the
-    outputs."""
+    outputs. With ``cls_scale`` the classifier is scaled by it, and
+    ``conv_out`` is drawn on the CPU, so that the weights do not depend on
+    the device's generator."""
     from arfe_tpu_torch.apis import init_detector
     t0 = time.time()
-    model = init_detector(FLAGSHIP_CFG)
-    gen = torch.Generator(device='cuda').manual_seed(1)
+    model = init_detector(cfg)
+    dev = 'cuda' if cls_scale is None else 'cpu'
+    gen = torch.Generator(device=dev).manual_seed(1)
     with torch.no_grad():
         w = model.neck[1].refine.conv_out.conv.weight
-        w.copy_(torch.randn(w.shape, generator=gen, device='cuda') * 0.01)
+        w.copy_(torch.randn(w.shape, generator=gen, device=dev) * 0.01)
+        if cls_scale is not None:
+            model.roi_head.bbox_head.fc_cls.weight.mul_(cls_scale)
     torch.cuda.synchronize()
     print(f'init_detector: {time.time() - t0:.1f} s, '
           f'{sum(p.numel() for p in model.parameters())} parameters')
     return model
 
 
-def serve(model):
-    """Four bs1 and two bs2 bf16 requests and two bs1 f32 requests at
-    800x1344 (random images scaled as bench.py:221 feeds them). Returns the kernel
-    launches of the run, and whether every request launched both kernels
-    and gave finite detections of the contract's shape."""
+def serve(model, requests):
+    """The ``(batch, dtype)`` requests at 800x1344 (random images scaled as
+    bench.py:221 feeds them; the first request of a shape or dtype also
+    pays one-time set-up, such as cuDNN's algorithm choice, so each comes
+    twice). Returns the kernel launches of the run, whether every request
+    launched kernel A once and kernel B exactly once (one extraction of all
+    its RoIs) and gave finite detections of the contract's shape, and
+    kernel B's arguments in the first request of each (batch, dtype)."""
     from arfe_tpu_torch.ops import fused_attention as fa
     from arfe_tpu_torch.ops import roi_align as ra
+    kernel_b, args = ra.roi_align_cuda, {}
     gen = torch.Generator(device='cuda').manual_seed(2)
-    # the first request of a shape or dtype also pays one-time set-up
-    # (cuDNN algorithm choice, lazy module loading): serve each twice
-    requests = [(1, torch.bfloat16)] * 4 + [(2, torch.bfloat16)] * 2 \
-        + [(1, torch.float32)] * 2
     ok = True
     fa.launches = ra.launches = 0
     for i, (b, dt) in enumerate(requests):
+        def keep_args(feats, rois, lvls, *rest, key=(b, dt), **kwargs):
+            args.setdefault(key, (feats, rois.clone(), lvls.clone()))
+            return kernel_b(feats, rois, lvls, *rest, **kwargs)
+        ra.roi_align_cuda = keep_args
         img = (torch.randn((b, H, W, 3), generator=gen, device='cuda')
                * 0.2).to(dt)
         shapes = torch.tensor([IMG_SHAPE] * b, device='cuda')
@@ -555,31 +600,37 @@ def serve(model):
         a0, r0 = fa.launches, ra.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        dets, labels, valid = model.simple_test(img, shapes, scales,
-                                                rescale=True)
-        torch.cuda.synchronize()
+        try:
+            dets, labels, valid = model.simple_test(img, shapes, scales,
+                                                    rescale=True)
+            torch.cuda.synchronize()
+        finally:
+            ra.roi_align_cuda = kernel_b
         ms = (time.perf_counter() - t0) * 1e3
         da, dr = fa.launches - a0, ra.launches - r0
         good = (dets.shape == (b, 100, 5) and labels.shape == (b, 100)
-                and bool(torch.isfinite(dets).all()) and da > 0 and dr > 0)
+                and bool(torch.isfinite(dets).all()) and da == 1 and dr == 1)
         ok = ok and good
         print(f'request {i}: bs{b} {str(dt)[6:]} {ms:.2f} ms, '
               f'{int(valid.sum())} detections, launches attention {da} '
-              f'roi_align {dr} {"ok" if good else "FAIL"}')
-    return {'fused_attention': fa.launches, 'roi_align': ra.launches}, ok
+              f'roi_align {dr} over {args[b, dt][1].shape[0]} RoIs '
+              f'{"ok" if good else "FAIL"}')
+    return {'fused_attention': fa.launches, 'roi_align': ra.launches}, ok, \
+        args
 
 
 # --------------------------------------------------------------------------
 # phase 4: the served detector against its plain path on the CPU
 # --------------------------------------------------------------------------
 
-def reference_check(model):
+def reference_check(model, cfg=FLAGSHIP_CFG):
     """Same weights, same f32 image (1, 320, 480, 3): features within 1e-4
     of their scale, and every CPU detection scoring >= 0.1 matched on the
-    card by one of its label with IoU > 0.7 and a score within 1e-2."""
+    card by one of its label with IoU > 0.7 (a box of zero area: within 1
+    px on every side) and a score within 1e-2."""
     from arfe_tpu_torch.apis import init_detector
     from arfe_tpu_torch.core.bbox import bbox_overlaps
-    cpu = init_detector(FLAGSHIP_CFG, device='cpu')
+    cpu = init_detector(cfg, device='cpu')
     cpu.load_state_dict(model.state_dict())
     img = torch.randn((1, 320, 480, 3),
                       generator=torch.Generator().manual_seed(3)) * 0.2
@@ -594,15 +645,26 @@ def reference_check(model):
     keep = want[2][0] & (want[0][0, :, 4] >= 0.1)
     wd, wl = want[0][0][keep], want[1][0][keep]
     gd, gl = got[0][0][got[2][0]], got[1][0][got[2][0]]
-    close = (bbox_overlaps(wd[:, :4], gd[:, :4]) > 0.7) \
-        & (wl[:, None] == gl[None]) \
+    # a box of zero area (a proposal clamped flat against the image's
+    # border) has IoU 0 with every box, itself too: it is matched by a card
+    # box within 1 px on every side instead
+    flat = (wd[:, 2] <= wd[:, 0]) | (wd[:, 3] <= wd[:, 1])
+    near = (wd[:, None, :4] - gd[None, :, :4]).abs().amax(dim=-1) <= 1.0
+    overlap = torch.where(flat[:, None], near,
+                          bbox_overlaps(wd[:, :4], gd[:, :4]) > 0.7)
+    close = overlap & (wl[:, None] == gl[None]) \
         & ((wd[:, None, 4] - gd[None, :, 4]).abs() < 1e-2)
     matched = int(close.any(dim=1).sum())
     ok = max(errs) <= 1e-4 and len(wd) > 0 and matched == len(wd)
     print(f'reference (CPU plain path, 320x480 f32): feature rel err '
           f'{max(errs):.2e} (tol 1e-4), {matched}/{len(wd)} detections '
-          f'matched, {int(got[2].sum())} on the card '
+          f'matched ({int(flat.sum())} of zero area), {int(got[2].sum())} '
+          f'on the card (lowest score '
+          f'{gd[:, 4].min().item() if len(gd) else float("nan"):.4f}) '
           f'{"ok" if ok else "FAIL"}')
+    for i in torch.nonzero(~close.any(dim=1)).flatten().tolist():
+        print(f'  unmatched: label {int(wl[i])} score {wd[i, 4]:.4f} box '
+              f'{[round(x, 2) for x in wd[i, :4].tolist()]}')
     return ok
 
 
@@ -610,27 +672,36 @@ def reference_check(model):
 # phase 5: train the flagship at full width
 # --------------------------------------------------------------------------
 
-def train():
-    """Four bs2 bf16 steps and one bs2 f32 step at 800x1344. Returns the
-    model, its parameters before the first step, the kernel launches of the
-    run, kernel C's arguments in the first step, and whether every step
-    gave
-    finite losses and launched all three kernels, the frozen parameters
-    stayed without a gradient, and every trainable tensor moved, but for
-    those whose gradient was exactly 0 in every step (named)."""
+def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
+          must_move=()):
+    """Bs2 training steps at 800x1344 of the ``cfg`` detector, one per entry
+    of ``dtypes``. Returns the model, its parameters before the first step,
+    the kernel launches of the run, kernel C's arguments in the first step,
+    and whether every step gave finite losses (a "+fac" head's
+    ``loss_multi_cls`` among them) and launched kernels A, B and C once
+    each, the frozen parameters stayed without a gradient, every trainable
+    tensor moved whose gradient was, in some step, large enough for the
+    step to move it in f32 (the others are named: those with a gradient
+    exactly 0 in every step, and those whose gradient the warm-up learning
+    rate scales below rounding), and every tensor of the bbox head's
+    ``must_move`` modules moved."""
     from arfe_tpu_torch.ops import fused_attention as fa
     from arfe_tpu_torch.ops import roi_align as ra
     from arfe_tpu_torch.train import make_train_step
     t0 = time.time()
-    model, opt, scheduler, frozen = bench.build_trainer()
+    model, opt, scheduler, frozen = bench.build_trainer(cfg)
     step = make_train_step(model, opt, scheduler)
-    batches = {dt: bench.synthetic_batch(2, dtype=dt)
-               for dt in (torch.bfloat16, torch.float32)}
+    batches = {dt: bench.synthetic_batch(2, dtype=dt) for dt in set(dtypes)}
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
     trainable = [k for k in before if not any(k.startswith(f)
                                               for f in frozen)]
     params = dict(model.named_parameters())
     had_grad = dict.fromkeys(trainable, False)
+    # a step moves every entry of a tensor whose largest |lr g| passes 2^-20
+    # of its largest |p|: 16 ulps of f32 at that magnitude and more at any
+    # smaller one (the weight decay, 1e-4 p, is far smaller than that g)
+    movable = dict.fromkeys(trainable, False)
+    p_max = torch.stack([before[k].abs().max() for k in trainable])
     torch.cuda.synchronize()
     print(f'build_trainer: {time.time() - t0:.1f} s, frozen {frozen}')
     # the RPN's sampled anchors at the coarsest level (stride 64, last in
@@ -657,33 +728,42 @@ def train():
     gen = torch.Generator(device='cuda').manual_seed(4)
     ok = True
     fa.launches = ra.launches = ra.bwd_launches = 0
-    for i, dt in enumerate([torch.bfloat16] * 4 + [torch.float32]):
-        counts = (fa.launches, ra.launches, ra.bwd_launches)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logs = step(batches[dt], gen)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        logs = {k: v.item() for k, v in logs.items()}
-        grew = [n - c for n, c in zip(
-            (fa.launches, ra.launches, ra.bwd_launches), counts)]
-        nonzero = torch.stack([params[k].grad.ne(0).any()
-                               if params[k].grad is not None
-                               else torch.tensor(False, device='cuda')
-                               for k in trainable]).tolist()
-        had_grad = {k: had_grad[k] or nz for k, nz in zip(trainable,
-                                                          nonzero)}
-        top = (sampled['weights'][:, -n_top:] > 0).sum(-1).tolist()
-        good = all(np.isfinite(v) for v in logs.values()) \
-            and all(n > 0 for n in grew)
-        ok = ok and good
-        print(f'train step {i}: bs2 {str(dt)[6:]} {ms:.2f} ms, '
-              + ', '.join(f'{k} {v:.5f}' for k, v in logs.items())
-              + f', launches attention {grew[0]} roi_align {grew[1]} '
-              f'roi_align_bwd {grew[2]}, RPN anchors sampled at stride '
-              f'{top_stride[0]} {top} {"ok" if good else "FAIL"}')
-    del rpn._targets
-    ra.roi_align_backward_cuda = kernel_c
+    try:
+        for i, dt in enumerate(dtypes):
+            counts = (fa.launches, ra.launches, ra.bwd_launches)
+            lr = opt.param_groups[0]['lr']
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = step(batches[dt], gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            logs = {k: v.item() for k, v in logs.items()}
+            grew = [n - c for n, c in zip(
+                (fa.launches, ra.launches, ra.bwd_launches), counts)]
+            g_max = torch.stack([params[k].grad.abs().max()
+                                 if params[k].grad is not None
+                                 else torch.zeros((), device='cuda')
+                                 for k in trainable])
+            nonzero = (g_max > 0).tolist()
+            big = (lr * g_max > 2.0 ** -20 * p_max).tolist()
+            had_grad = {k: had_grad[k] or nz for k, nz in zip(trainable,
+                                                              nonzero)}
+            movable = {k: movable[k] or b for k, b in zip(trainable, big)}
+            top = (sampled['weights'][:, -n_top:] > 0).sum(-1).tolist()
+            good = all(np.isfinite(v) for v in logs.values()) \
+                and grew == [1, 1, 1] and ('loss_multi_cls' in logs
+                                           or not model.roi_head
+                                           .with_multi_cls)
+            ok = ok and good
+            print(f'train step {i}: bs2 {str(dt)[6:]} {ms:.2f} ms, '
+                  + ', '.join(f'{k} {v:.5f}' for k, v in logs.items())
+                  + f', launches attention {grew[0]} roi_align {grew[1]} '
+                  f'roi_align_bwd {grew[2]} (over {step_args[1].shape[0]} '
+                  f'RoIs), RPN anchors sampled at stride {top_stride[0]} '
+                  f'{top} {"ok" if good else "FAIL"}')
+    finally:
+        del rpn._targets
+        ra.roi_align_backward_cuda = kernel_c
     launches = {'fused_attention': fa.launches, 'roi_align': ra.launches,
                 'roi_align_bwd': ra.bwd_launches}
     frozen_moved = [k for k in before if k not in had_grad and (
@@ -692,17 +772,25 @@ def train():
                or not bool(torch.isfinite(params[k].grad).all())]
     unchanged = [k for k in trainable if torch.equal(params[k], before[k])]
     zero_grad = [k for k in trainable if not had_grad[k]]
-    stuck = [k for k in unchanged if had_grad[k]]
+    small_grad = [k for k in unchanged if had_grad[k] and not movable[k]]
+    stuck = [k for k in unchanged if movable[k]]
+    mine = [k for k in params if any(k.startswith(f'roi_head.bbox_head.{m}.')
+                                     for m in must_move)]
+    mine_stuck = [k for k in mine if k in unchanged]
     theta = model.neck[1].refine.theta.conv.weight.grad
     live = theta is not None and float(theta.abs().max()) > 0
-    good = not frozen_moved and not no_grad and not stuck and live
+    good = not frozen_moved and not no_grad and not stuck and live \
+        and not mine_stuck and len(mine) >= 2 * len(must_move)
     print(f'train parameters: {len(trainable) - len(unchanged)} of '
-          f'{len(trainable)} trainable moved; unchanged with a nonzero '
-          f'gradient {stuck}; gradient exactly 0 in every step {zero_grad} '
-          f'(unchanged: {[k for k in zero_grad if k in unchanged]}); frozen '
+          f'{len(trainable)} trainable moved; unchanged with a gradient '
+          f'large enough to move them {stuck}; unchanged, the gradient too '
+          f'small for the learning rate {small_grad}; gradient exactly 0 in '
+          f'every step {zero_grad} (unchanged: '
+          f'{[k for k in zero_grad if k in unchanged]}); frozen '
           f'moved or with a gradient {frozen_moved[:3]}; without a finite '
-          f'gradient {no_grad[:3]}; attention gradient live {live} '
-          f'{"ok" if good else "FAIL"}')
+          f'gradient {no_grad[:3]}; attention gradient live {live}; of '
+          f'{must_move} {len(mine) - len(mine_stuck)} of {len(mine)} tensors '
+          f'moved {"ok" if good else "FAIL"}')
     for dt, batch in batches.items():
         print(f'AR-FPN attention-map convs per level in {str(dt)[6:]}, '
               'outputs positive before the ReLU and of those unsaturated by '
@@ -737,7 +825,7 @@ def reduce_conv_activity(model, img):
 # phase 6: a training step on the card against its plain path on the CPU
 # --------------------------------------------------------------------------
 
-def train_reference_check(model, start):
+def train_reference_check(model, start, cfg=FLAGSHIP_CFG, readings=True):
     """The trainer's seeded starting weights ``start`` on the card and on
     the CPU; one f32 ``forward_train`` + backward of a (2, 320, 480) batch
     with the same sampling priorities on both, and once more on the CPU with
@@ -749,13 +837,14 @@ def train_reference_check(model, start):
     the CPU's own spread, relative; each parameter's largest gradient
     difference within ``bench.GRAD_RTOL`` of its largest |g|, with the CPU's
     spread printed beside it. The kernels' own checks above hold them to f32
-    rounding."""
+    rounding. With ``readings``, also what the check reads for a 3% error
+    of kernel C on one level."""
     from arfe_tpu_torch.apis import init_detector
     h, w = 320, 480
     with torch.no_grad():
         for k, p in model.named_parameters():
             p.copy_(start[k])
-    cpu = init_detector(FLAGSHIP_CFG, device='cpu', train=True)
+    cpu = init_detector(cfg, device='cpu', train=True)
     cpu.load_state_dict(model.state_dict())
     batch = bench.synthetic_batch(2, h, w, (float(h), float(w)),
                                   torch.float32, seed=6, device='cpu')
@@ -772,10 +861,11 @@ def train_reference_check(model, start):
           f'{r["grad_spread"][0]:.2e} at {r["grad_spread"][1]}; tol '
           f'{bench.GRAD_RTOL:g}) over {r["params"]} parameters '
           f'{"ok" if r["ok"] else "FAIL"}')
-    print('the same check against kernel C with one level\'s gradient '
-          'scaled by 1.03 reads, for levels 0-3: '
-          f'{[f"{x:.2e}" for x in level_error_readings(model, batch, r)]} '
-          f'(tol {bench.GRAD_RTOL:g})')
+    if readings:
+        print('the same check against kernel C with one level\'s gradient '
+              'scaled by 1.03 reads, for levels 0-3: '
+              f'{[f"{x:.2e}" for x in level_error_readings(model, batch, r)]}'
+              f' (tol {bench.GRAD_RTOL:g})')
     return r['ok']
 
 
@@ -800,29 +890,179 @@ def level_error_readings(model, batch, r, scale=1.03):
     return readings
 
 
+# --------------------------------------------------------------------------
+# phases 7-11: the AR-RFF flagship (config #4) and the "+fac" detector
+# --------------------------------------------------------------------------
+
+# At random weights the AR-RFF and "+fac" heads' class logits reach the
+# hundreds: nearly every score rounds to 1 and the 100-detection cut falls
+# among ties, whose order the card and the CPU need not share. Their served
+# classifiers are scaled so that the scores spread below the cut (at
+# 320x480 on the CPU: 29 and 18 detections score >= 0.1, the 100th 0.075
+# and 0.082).
+CLS_SCALE = {'arrff': 0.1, 'fac': 0.006}
+
+
+def _roi_census(rois, lvls, what):
+    """How many of the RoIs reach past the image's content (x2 beyond its
+    width, y2 beyond its height) and past the levels' padded extent, and
+    how the original third and the whole set spread over the levels."""
+    r = rois.shape[0] // 3
+    h, w = IMG_SHAPE
+    past = [int((rois[k * r:(k + 1) * r, 3] > w).sum()
+                + (rois[k * r:(k + 1) * r, 4] > h).sum()) for k in range(3)]
+    padded = int(((rois[:, 3] > W) | (rois[:, 4] > H)).sum())
+    print(f'{what}: {rois.shape[0]} RoIs [ori, lw, lh]; x2 > {w:g} or y2 > '
+          f'{h:g} (counted per side) in each third {past}; past the padded '
+          f'{W}x{H} {padded}; per level, the originals '
+          f'{torch.bincount(lvls[:r].long(), minlength=4).tolist()}, all '
+          f'{torch.bincount(lvls.long(), minlength=4).tolist()}')
+
+
+def check_roi_align_arrff(args):
+    """Kernel B against ``roi_align_pyramid_plain`` on the 3P RoIs, levels
+    and features of the first bs1 and bs2 AR-RFF requests (R = 3000, 6000),
+    in bf16 and f32 (the bs2 levels cast to f32; bs1's from the f32
+    request), each timed by graph replay beside its bound and the plain
+    version's time."""
+    from arfe_tpu_torch.ops import roi_align as ra
+    strides = (4, 8, 16, 32)
+    ok, row = True, {}
+    for b in (1, 2):
+        for dt in (torch.bfloat16, torch.float32):
+            feats, rois, lvls = args.get((b, dt)) or args[b, torch.bfloat16]
+            feats = [f.to(dt) for f in feats]
+            num = rois.shape[0]
+            if dt == torch.bfloat16:
+                _roi_census(rois, lvls, f'AR-RFF bs{b} request')
+
+            def kernel():
+                return ra.roi_align_cuda(feats, rois, lvls, (7, 7), strides,
+                                         2, True)
+            got = kernel()
+            ref = ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7),
+                                             strides, 2, True)
+            torch.cuda.synchronize()
+            good, err = _roi_align_agrees(got, ref, rois, lvls,
+                                          f'R={num} B={b} (AR-RFF)')
+            del got, ref
+            ok = ok and good
+            ms = cuda_ms(kernel, graph=True)
+            plain_ms = cuda_ms(lambda: ra.roi_align_pyramid_plain(
+                feats, rois, lvls, (7, 7), strides, 2, True), iters=5)
+            bound, touched = _roi_align_bound(feats, rois, lvls, strides)
+            print(f'roi_align R={num} B={b} {str(dt)[6:]} (AR-RFF): kernel '
+                  f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} '
+                  f'ms ({touched} distinct pixels)')
+            key = f'_arrff_r{num}' + ('_f32' if dt == torch.float32 else '')
+            row.update({'max_abs_err' + key: err, 'ms' + key: ms,
+                        'plain_ms' + key: plain_ms, 'bound_ms' + key: bound})
+    return ok, row
+
+
+def arfe(name, requests, train_dtypes, must_move):
+    """Serve the ``name`` detector, check it against the CPU, train it, and
+    check a training step against the CPU; for AR-RFF also kernels B and C
+    at its shapes. Returns each check's result, the serving and training
+    runs' launches, and the AR-RFF kernel rows."""
+    cfg = bench.ARFE_CFGS[name]
+    results, rows = {}, [{}, {}]
+    with phase(f'{name}: serve'):
+        model = build_detector(cfg, CLS_SCALE[name])
+        launches_serve, results['serve'], args = serve(model, requests)
+    with phase(f'{name}: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    if name == 'arrff':
+        with phase('arrff: kernel B at R = 3000, 6000'):
+            results['kernel_b'], rows[0] = check_roi_align_arrff(args)
+    del args
+    with phase(f'{name}: train'):
+        model, start, launches_train, step_args, results['train'] = \
+            train(cfg, train_dtypes, must_move)
+    if name == 'arrff':
+        with phase('arrff: kernel C at R = 3072'):
+            results['kernel_c'], rows[1] = check_roi_align_bwd_step(
+                step_args, key='_arrff_r3072', plain=True)
+            _roi_census(step_args[1], step_args[2], 'AR-RFF training step')
+    del step_args
+    with phase(f'{name}: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, rows
+
+
+PHASE_SECONDS = {}
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Prints the phase's wall seconds when it ends, and keeps them in
+    ``PHASE_SECONDS``."""
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = time.time() - t0
+        print(f'phase {name}: {PHASE_SECONDS[name]:.1f} s', flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
+    t0 = time.time()
     name_limit = card()
     print(name_limit)
-    build_kernels()
-    ok_kernels, rows = check_kernels()
-    model = build_detector()
-    launches_serve, ok_serve = serve(model)
-    ok_ref = reference_check(model)
+    with phase('build'):
+        build_kernels()
+    with phase('kernels'):
+        ok_kernels, rows = check_kernels()
+    bf, f32 = torch.bfloat16, torch.float32
+    with phase('flagship: serve'):
+        model = build_detector()
+        launches_serve, ok_serve, _ = serve(
+            model, [(1, bf)] * 4 + [(2, bf)] * 2 + [(1, f32)] * 2)
+    with phase('flagship: card against CPU'):
+        ok_ref = reference_check(model)
     del model
     torch.cuda.empty_cache()
-    model, start, launches, step_args, ok_train = train()
-    ok_step_rois, row_step = check_roi_align_bwd_step(step_args)
+    with phase('flagship: train'):
+        model, start, launches, step_args, ok_train = train()
+    with phase('flagship: kernel C on a step\'s RoIs'):
+        ok_step_rois, row_step = check_roi_align_bwd_step(step_args)
     rows[2].update(row_step)
-    ok_train_ref = train_reference_check(model, start)
+    del step_args
+    with phase('flagship: training step, card against CPU'):
+        ok_train_ref = train_reference_check(model, start)
+    del model
+    torch.cuda.empty_cache()
+    arrff = arfe('arrff', [(1, bf)] * 2 + [(2, bf)] * 2 + [(1, f32)] * 2,
+                 [bf, bf, f32], ('hh_conv', 'wh_conv', 'final_conv'))
+    rows[1].update(arrff[3][0])
+    rows[2].update(arrff[3][1])
+    # at random weights the "+fac" presence logits saturate: its
+    # loss_multi_cls reads 1 + tanh(1) and can pass no gradient
+    fac = arfe('fac', [(1, bf)] * 2, [bf, bf], ())
     for row in rows:
         row['launches'] = launches[row['name']]
         row['launches_serve'] = launches_serve.get(row['name'], 0)
-    if not (ok_kernels and ok_serve and ok_ref and ok_train
-            and ok_step_rois and ok_train_ref):
-        print('chip_smoke: a phase failed', file=sys.stderr)
+        for name, (_, serve_runs, train_runs, _) in (('arrff', arrff),
+                                                      ('fac', fac)):
+            row[f'launches_{name}_serve'] = serve_runs.get(row['name'], 0)
+            row[f'launches_{name}_train'] = train_runs[row['name']]
+    failed = [k for k, v in (('kernels', ok_kernels), ('serve', ok_serve),
+                             ('reference', ok_ref), ('train', ok_train),
+                             ('kernel C on a step', ok_step_rois),
+                             ('train reference', ok_train_ref)) if not v]
+    failed += [f'{name} {k}' for name, r in (('arrff', arrff), ('fac', fac))
+               for k, v in r[0].items() if not v]
+    print(f'phases: {len(PHASE_SECONDS)}, total {time.time() - t0:.1f} s')
+    if failed:
+        print(f'chip_smoke: phases failed: {failed}', file=sys.stderr)
         return 1
     print(json.dumps({'kernels': rows}))
     print(name_limit)

@@ -13,6 +13,7 @@ import torch
 from arfe_tpu_torch.apis import init_detector
 from arfe_tpu_torch.config import Config
 from arfe_tpu_torch.core.bbox import bbox_overlaps
+from arfe_tpu_torch.models.utils import get_adaptive_scale_rois
 from arfe_tpu_torch.ops import fused_attention as fa
 from arfe_tpu_torch.ops import roi_align as ra
 from arfe_tpu_torch.train import bench
@@ -180,9 +181,10 @@ def test_roi_align_backward_kernel_rejects_channels_off_the_vector(cuda):
     assert ra.bwd_launches == before
 
 
-def _tiny_cfg():
-    """The flagship at R18 and 64 channels."""
-    cfg = Config.fromfile(bench.FLAGSHIP_CFG)
+def _tiny_cfg(path=bench.FLAGSHIP_CFG):
+    """The flagship (or another config of its family) at R18 and 64
+    channels."""
+    cfg = Config.fromfile(path)
     mc = cfg.model
     mc.backbone.depth = 18
     mc.neck[0].update(in_channels=[64, 128, 256, 512], out_channels=64)
@@ -308,6 +310,79 @@ def test_attention_gradient_on_card(cuda, dtype):
         assert d.dtype == dtype and bool(torch.isfinite(d).all())
         tol = 1e-6 * w.float().abs().max().item()
         assert (d.float() - w.float()).abs().max().item() <= tol
+
+
+def _stretched_rois(gen, dev, num=500, batch=2, h=200.0, w=336.0):
+    """Proposal-like boxes inside a (h, w) image, then their AR-RFF
+    stretches (``get_adaptive_scale_rois``) after them as the RoI head
+    extracts them, [ori, lw, lh]: thin boxes stretch far past the bottom or
+    the right edge."""
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(num, generator=gen, device=dev)
+    x1, y1 = u(0, w - 2), u(0, h - 2)
+    x2 = torch.minimum(x1 + torch.exp(u(0, 5.5)), torch.tensor(w))
+    y2 = torch.minimum(y1 + torch.exp(u(0, 5.5)), torch.tensor(h))
+    b = torch.randint(0, batch, (num,), generator=gen, device=dev).float()
+    rois = torch.stack([b, x1, y1, x2, y2], 1)
+    lh, lw = get_adaptive_scale_rois(rois, 1.0)
+    rois = torch.cat([rois, lw, lh]).contiguous()
+    assert bool((rois[:, 3] > w).any()) and bool((rois[:, 4] > h).any())
+    return rois
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_on_stretched_rois(cuda, dtype):
+    """Kernel B on AR-RFF's triple RoIs, each on the level of its own box:
+    samples past the level's edge read as zero, as in the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    strides = (4, 8, 16, 32)
+    feats = [torch.randn((2, 200 // s, 336 // s, 256), generator=gen,
+                         device=cuda).to(dtype) for s in strides]
+    rois = _stretched_rois(gen, cuda)
+    lvls = ra.map_roi_levels(rois, 4)
+    got = ra.roi_align_cuda(feats, rois, lvls, (7, 7), strides, 2, True)
+    ref = ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7), strides, 2)
+    d = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert d.max().item() <= 1e-5
+    else:
+        assert bool((d <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
+
+
+def test_roi_align_backward_kernel_on_stretched_rois(cuda):
+    """Kernel C on AR-RFF's triple RoIs, each on the level of its own box,
+    within 1e-5 of the sum of its terms' magnitudes, plus 1e-7."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    rois = _stretched_rois(gen, cuda)
+    lvls = ra.map_roi_levels(rois, 4)
+    shapes = _level_shapes(256)
+    g = torch.randn((rois.shape[0], 7, 7, 256), generator=gen, device=cuda)
+    got = ra.roi_align_backward_cuda(g, rois, lvls, shapes)
+    want = ra.roi_align_backward_plain(g, rois, lvls, shapes)
+    scale = ra.roi_align_backward_plain(g.abs(), rois, lvls, shapes)
+    for d, w, s in zip(got, want, scale):
+        assert bool(((d - w).abs() <= 1e-5 * s + 1e-7).all())
+
+
+@pytest.mark.parametrize('name', ['arrff', 'fac'])
+def test_arfe_train_step_on_card_matches_cpu(cuda, name):
+    """One f32 step of the tiny AR-RFF (one launch of kernel B and one of C
+    over the triple RoIs) and "+fac" detectors on the card against the
+    CPU, under the tolerances of ``test_train_step_on_card_matches_cpu``."""
+    cfg = _tiny_cfg(bench.ARFE_CFGS[name])
+    torch.manual_seed(0)
+    cpu = init_detector(cfg, device='cpu', train=True)
+    with torch.no_grad():
+        cpu.neck[1].refine.conv_out.conv.weight.normal_(0, 0.02)
+    gpu = init_detector(cfg, device=cuda, train=True)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = bench.synthetic_batch(2, 192, 256, (192.0, 250.0),
+                                  torch.float32, seed=3, device='cpu')
+    counts = (fa.launches, ra.launches, ra.bwd_launches)
+    r = bench.compare_with_cpu(gpu, cpu, batch, seed=1)
+    assert [n - c for n, c in zip(
+        (fa.launches, ra.launches, ra.bwd_launches), counts)] == [1, 1, 1]
+    assert r['ok'], r
 
 
 def test_train_step_on_card_matches_cpu(cuda):

@@ -96,6 +96,31 @@ def _patch_torch(sampler, pos, neg):
         cand, neg, float('inf'))
 
 
+class _RoIsWithoutGradient:
+    """A JAX RoI extractor whose RoIs get no gradient."""
+
+    def __init__(self, extractor):
+        self.extractor = extractor
+
+    def __getattr__(self, name):
+        return getattr(self.extractor, name)
+
+    def __call__(self, params, feats, rois, **kwargs):
+        return self.extractor(params, feats, jax.lax.stop_gradient(rois),
+                              **kwargs)
+
+
+def stop_roi_gradient(jm):
+    """The RoIs entering the JAX instance's extractor get no gradient, as in
+    the JAX package's kernel path, whose VJP gives them zeros
+    (``arfe_tpu/ops/pallas_roi_align.py:429,435``), and in the port. On the
+    CPU the JAX package extracts with its plain ``roi_align_pyramid``, which
+    differentiates them. The box targets' gradient through the proposals
+    into ``rpn_reg`` stays on both sides."""
+    head = jm.roi_head
+    head.bbox_roi_extractor = _RoIsWithoutGradient(head.bbox_roi_extractor)
+
+
 @pytest.fixture(scope='module')
 def run():
     rng = np.random.RandomState(0)
@@ -121,14 +146,7 @@ def run():
     for m, patch in ((jm, _patch_jax), (tm, _patch_torch)):
         patch(m.rpn_head.sampler, *prio['rpn'])
         patch(m.roi_head.sampler, *prio['rcnn'])
-    # The JAX package stops the gradient of the shared features under the
-    # proposals, but not of the 1x1 heads' weights, so the RoI head's box
-    # targets send a gradient through the decoded proposals into rpn_reg.
-    # The reference detaches the proposals and so does the port: the JAX
-    # side gets that on the instance, as the samplers get their priorities.
-    proposals = jm.rpn_head.get_proposals
-    jm.rpn_head.get_proposals = lambda p, *a, **k: proposals(
-        jax.lax.stop_gradient(p), *a, **k)
+    stop_roi_gradient(jm)
 
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     jargs = [jnp.asarray(x) for x in (img, SHAPES, gt, gvalid, glabels)]
@@ -279,7 +297,8 @@ def test_losses_match_jax(run, name):
 
 def test_gradients_match_jax(run):
     """Every trainable parameter's gradient within 1e-4 + 1e-3 max|g| of
-    ``jax.grad`` of the JAX ``forward_train`` + ``parse_losses``."""
+    ``jax.grad`` of the JAX ``forward_train`` + ``parse_losses``; ``rpn_reg``
+    among them, which the box targets reach through the proposals."""
     jgrads = run['jgrads']
     checked, bad = 0, []
     for name, p in run['tm'].named_parameters():
@@ -297,6 +316,33 @@ def test_gradients_match_jax(run):
     theta = dict(run['tm'].named_parameters())[
         'neck.1.refine.theta.conv.weight']
     assert float(theta.grad.abs().max()) > 0
+
+
+def test_proposals_carry_gradient_to_rpn_reg(run, monkeypatch):
+    """The box targets' gradient through the proposals reaches ``rpn_reg``
+    (as ``jax.grad`` has it, ``test_gradients_match_jax``): with the
+    proposals detached, its gradient is another."""
+    tm, d = run['tm'], run['data']
+    args = [torch.from_numpy(d[k]) for k in ('img', 'gt', 'gvalid',
+                                             'glabels')]
+    args.insert(1, torch.from_numpy(SHAPES))
+    get_proposals = tm.rpn_head.get_proposals
+    monkeypatch.setattr(tm.rpn_head, 'get_proposals', lambda *a, **k: tuple(
+        t.detach() for t in get_proposals(*a, **k)))
+    saved = {k: p.grad for k, p in tm.named_parameters()}
+    tm.zero_grad(set_to_none=True)
+    total, _ = parse_losses(tm.forward_train(*args,
+                                             torch.Generator().manual_seed(0)))
+    total.backward()
+    detached = tm.rpn_head.rpn_reg.weight.grad
+    for k, p in tm.named_parameters():      # the other tests read them
+        p.grad = saved[k]
+    want = run['jgrads']['rpn_head.rpn_reg.weight']
+    np.testing.assert_allclose(tm.rpn_head.rpn_reg.weight.grad.numpy(),
+                               want.numpy(), atol=1e-4 + 1e-3 *
+                               float(want.abs().max()))
+    assert float((detached - want).abs().max()) > 1e-2 * float(
+        want.abs().max())
 
 
 def test_frozen_parameters_get_no_gradient(run):
