@@ -1,3 +1,4 @@
-from .inference import init_detector
+from .inference import inference_detector, init_detector
+from .test import single_device_test
 
-__all__ = ['init_detector']
+__all__ = ['inference_detector', 'init_detector', 'single_device_test']

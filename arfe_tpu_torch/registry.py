@@ -1,7 +1,8 @@
 """String-keyed registries mapping config ``type='X'`` tags to constructors.
 
 The port's own copy of ``arfe_tpu/registry.py`` (the port imports nothing of
-the JAX package), with the registries the inference and training paths use.
+the JAX package), with the registries the inference, training and
+evaluation paths use.
 """
 from __future__ import annotations
 
@@ -84,3 +85,7 @@ BBOX_ASSIGNERS = Registry('bbox_assigner')
 BBOX_SAMPLERS = Registry('bbox_sampler')
 BBOX_CODERS = Registry('bbox_coder')
 ANCHOR_GENERATORS = Registry('anchor_generator')
+
+# Data registries (ref: mmdet/datasets/builder.py, pipelines/compose.py)
+DATASETS = Registry('dataset')
+PIPELINES = Registry('pipeline')

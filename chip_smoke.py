@@ -50,14 +50,30 @@
     requests, then against the CPU as in 4.
 11. Trains "+fac": two bs2 bf16 steps with a finite ``loss_multi_cls``,
     then a training step against the CPU as in 6.
+12. Evaluates AR-RFF (the port config
+    ``arfe_tpu_torch/configs/faster_rcnn_r50_arfpn_arrff_1x_coco.py``) on
+    a synthetic COCO set of 8 PNGs at COCO's shapes, written under
+    ``build/eval_coco``, through the test CLI's functions (dataset, test
+    pipeline, loader with the config's 2 workers, ``single_device_test``,
+    ``evaluate``) at (1333, 800) on the card, bf16 and f32: every image
+    must launch kernels A and B once each; the loader's detections must
+    equal ``inference_detector``'s on the same files; A and B are held
+    against their plain versions on the arguments of the first real image
+    of two padded shapes (and timed on the first); the card's f32 stats
+    must be within 1e-3 of the CPU's plain path at (667, 400), ground truth
+    seeded from the CPU's detections. Prints whether PIL imports, the host
+    pipeline's time per image, images per second, each request's time on
+    the card's clock and, under the profiler, the device's idle share.
 
 Prints each phase's wall seconds and the total, one JSON line of kernel
 numbers (``launches`` counts the flagship's training run,
 ``launches_serve`` its serving run, ``launches_{arrff,fac}_{serve,train}``
-those of AR-RFF and "+fac"; the ``_arrff_r*`` keys are kernels B and C at
-AR-RFF's shapes), then the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, if
-there is no CUDA device or any phase fails.
+those of AR-RFF and "+fac", ``launches_arrff_eval`` the two timed
+evaluation runs; the ``_arrff_r*`` keys are kernels B and C at AR-RFF's
+shapes, the ``_eval_*`` keys A and B on a real image's arguments), then the
+card's name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``. Exits non-zero, with no result line, if there is no CUDA device or
+any phase fails.
 """
 from __future__ import annotations
 
@@ -995,6 +1011,384 @@ def arfe(name, requests, train_dtypes, must_move):
     return results, launches_serve, launches_train, rows
 
 
+# --------------------------------------------------------------------------
+# phase 12: AR-RFF evaluated on a synthetic COCO set through the test CLI's
+# functions: image files -> test pipeline -> loader -> single_device_test
+# -> CocoDataset.evaluate
+# --------------------------------------------------------------------------
+
+PORT_CFG = 'arfe_tpu_torch/configs/faster_rcnn_r50_arfpn_arrff_1x_coco.py'
+EVAL_ROOT = 'build/eval_coco'
+# (h, w) of COCO val images: padded at (1333, 800) to 800x1088, 1088x800,
+# 800x1216 and 1216x800
+EVAL_SIZES = [(480, 640), (640, 480), (427, 640), (375, 500), (640, 427),
+              (333, 500), (424, 640), (480, 640)]
+# the CPU's plain path runs the full-width detector at this scale
+CPU_SCALE = (667, 400)
+STATS = ('bbox_mAP', 'bbox_AP50', 'bbox_AP75', 'bbox_APs', 'bbox_APm',
+         'bbox_APl')
+
+
+def _eval_config(scale=(1333, 800), workers=None):
+    """The AR-RFF port config on the synthetic set at ``scale``."""
+    from arfe_tpu_torch.config import Config
+    cfg = Config.fromfile(PORT_CFG)
+    cfg.data.test.update(ann_file=f'{EVAL_ROOT}/ann.json',
+                         img_prefix=f'{EVAL_ROOT}/imgs')
+    cfg.data.test.pipeline[1].img_scale = scale
+    if workers is not None:
+        cfg.data.workers_per_gpu = workers
+    return cfg
+
+
+class RequestLog:
+    """Wraps ``model.simple_test``: each request's kernel launches, its
+    span on the card's clock (CUDA events) and its end on the host's, and
+    the arguments of kernels A and B in the first request of each padded
+    shape and dtype."""
+
+    def __init__(self, model):
+        from arfe_tpu_torch.ops import fused_attention as fa
+        from arfe_tpu_torch.ops import roi_align as ra
+        self.model, self.fa, self.ra = model, fa, ra
+        self.simple_test = model.simple_test
+        self.kernel_a, self.kernel_b = fa.fused_attention_cuda, \
+            ra.roi_align_cuda
+        self.args, self.requests = {}, []
+
+    def __enter__(self):
+        self.model.simple_test = self._request
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.simple_test
+        self.fa.fused_attention_cuda = self.kernel_a
+        self.ra.roi_align_cuda = self.kernel_b
+
+    def _request(self, img, *args, **kwargs):
+        fa, ra = self.fa, self.ra
+        key = (tuple(img.shape[1:3]), img.dtype)
+        keep = self.args.setdefault(key, {}) if key not in self.args \
+            else None
+
+        def kernel_a(q, k, v, *rest):
+            if keep is not None:
+                keep.setdefault('a', (q.clone(), k.clone(), v.clone()))
+            return self.kernel_a(q, k, v, *rest)
+
+        def kernel_b(feats, rois, lvls, *rest, **kw):
+            if keep is not None:
+                keep.setdefault('b', ([f.clone() for f in feats],
+                                      rois.clone(), lvls.clone()))
+            return self.kernel_b(feats, rois, lvls, *rest, **kw)
+        fa.fused_attention_cuda, ra.roi_align_cuda = kernel_a, kernel_b
+        counts = (fa.launches, ra.launches)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = self.simple_test(img, *args, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        self.requests.append(dict(
+            shape=key[0], dtype=img.dtype, end=time.perf_counter(),
+            card_ms=start.elapsed_time(end),
+            launches=(fa.launches - counts[0], ra.launches - counts[1])))
+        return out
+
+
+def _flat(per_class):
+    return [(float(box[4]), c, box[:4]) for c, boxes in enumerate(per_class)
+            for box in boxes]
+
+
+def _box_iou(a, b):
+    x1, y1 = max(a[0], b[0]), max(a[1], b[1])
+    x2, y2 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(x2 - x1, 0) * max(y2 - y1, 0)
+    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+             - inter)
+    return inter / max(union, 1e-10)
+
+
+def _unmatched(ref, got):
+    """The reference detections that no unused detection of ``got`` matches
+    by tests/test_e2e_parity_arfe.py:345-366's rule (same label, IoU > 0.7,
+    score within 1e-2), a box of zero area by its coordinates within 1 px."""
+    used, missing = set(), []
+    for sc, lab, box in ref:
+        flat = box[2] <= box[0] or box[3] <= box[1]
+        for j, (gsc, glab, gbox) in enumerate(got):
+            near = (abs(np.asarray(box) - gbox).max() <= 1.0 if flat
+                    else _box_iou(box, gbox) > 0.7)
+            if j not in used and glab == lab and near \
+                    and abs(gsc - sc) < 1e-2:
+                used.add(j)
+                break
+        else:
+            missing.append((round(sc, 4), lab,
+                            [round(float(x), 1) for x in box]))
+    return missing
+
+
+def _check_eval_kernels(log, dtype, row):
+    """Kernels A and B against their plain versions on the arguments of the
+    first request of two padded shapes (a landscape and a portrait image),
+    in ``dtype``; the first shape's also timed beside its bound, the plain
+    version's time and SDPA's. Adds the numbers to ``row`` (A's, B's)."""
+    from arfe_tpu_torch.ops import fused_attention as fa
+    from arfe_tpu_torch.ops import roi_align as ra
+    shapes = [s for s, dt in log.args if dt == dtype][:2]
+    ok, name = True, str(dtype)[6:]
+    for i, shape in enumerate(shapes):
+        args = log.args[shape, dtype]
+        q, k, v = args['a']
+        got, ref = fa.fused_attention_cuda(q, k, v), fa.attention_plain(q, k,
+                                                                        v)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        b, n, c = q.shape
+        good = bool(torch.isfinite(got).all())
+        if dtype == torch.float32:
+            # the plain version's own f32 error on real features (|v| ~ 10)
+            # reaches the 1e-4 of phase 2: the kernel is held to 1e-4 of the
+            # exact (f64) result, and to the plain version within 1e-4 plus
+            # the plain version's own distance from the exact result
+            exact = torch.softmax(q.double() @ k.double().transpose(-1, -2),
+                                  -1) @ v.double()
+            err_exact = (got.double() - exact).abs().max().item()
+            plain_exact = (ref.double() - exact).abs().max().item()
+            del exact
+            tol = 1e-4 + plain_exact
+            good = good and err <= tol and err_exact <= 1e-4
+            detail = (f'; against f64: kernel {err_exact:.3e} (tol 1e-4), '
+                      f'plain {plain_exact:.3e}')
+        else:
+            tol = 2.0 ** -8 * v.float().abs().max().item()
+            good = good and err <= tol
+            detail = ''
+        print(f'eval attention {shape[0]}x{shape[1]} (N={n}) {name}, max |v| '
+              f'{v.float().abs().max().item():.2f}: max_abs_err {err:.3e} '
+              f'against plain (tol {tol:.3e}){detail} '
+              f'{"ok" if good else "FAIL"}')
+        feats, rois, lvls = args['b']
+        got_b = ra.roi_align_cuda(feats, rois, lvls, (7, 7), (4, 8, 16, 32),
+                                  2, True)
+        ref_b = ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7),
+                                           (4, 8, 16, 32), 2, True)
+        torch.cuda.synchronize()
+        good_b, err_b = _roi_align_agrees(
+            got_b, ref_b, rois, lvls, f'R={rois.shape[0]} {shape[0]}x'
+            f'{shape[1]} (eval)')
+        ok = ok and good and good_b
+        del got, ref, got_b, ref_b
+        if i:
+            continue
+        suffix = f'_eval_{shape[0]}x{shape[1]}' + (
+            '_f32' if dtype == torch.float32 else '')
+        ms = cuda_ms(lambda: fa.fused_attention_cuda(q, k, v), graph=True)
+        plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v))
+        q4, k4, v4 = (t[:, None] for t in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0), graph=True)
+        bound, by = _attention_bound(b, n, c, dtype)
+        print(f'eval attention N={n} {name}: kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} '
+              f'ms ({by})')
+        row[0].update({'max_abs_err' + suffix: err, 'ms' + suffix: ms,
+                       'plain_ms' + suffix: plain_ms,
+                       'library_ms' + suffix: lib_ms,
+                       'bound_ms' + suffix: bound, 'n' + suffix: n})
+
+        def kernel():
+            return ra.roi_align_cuda(feats, rois, lvls, (7, 7),
+                                     (4, 8, 16, 32), 2, True)
+        ms_b = cuda_ms(kernel, graph=True)
+        plain_b = cuda_ms(lambda: ra.roi_align_pyramid_plain(
+            feats, rois, lvls, (7, 7), (4, 8, 16, 32), 2, True), iters=5)
+        bound_b, touched = _roi_align_bound(feats, rois, lvls)
+        print(f'eval roi_align R={rois.shape[0]} {name}: kernel {ms_b:.4f} '
+              f'ms, plain {plain_b:.4f} ms, bound {bound_b:.4f} ms '
+              f'({touched} distinct pixels)')
+        row[1].update({'max_abs_err' + suffix: err_b, 'ms' + suffix: ms_b,
+                       'plain_ms' + suffix: plain_b,
+                       'bound_ms' + suffix: bound_b})
+    return ok and len(shapes) == 2
+
+
+def _timed_run(model, loader, dtype, log):
+    """``single_device_test`` over the set; returns the results, the wall
+    seconds, and the images per second after the first request (the loader's
+    worker start-up excluded)."""
+    from arfe_tpu_torch.apis import single_device_test
+    first = len(log.requests)
+    t0 = time.perf_counter()
+    results = single_device_test(model, loader, show_progress=False,
+                                 dtype=dtype)
+    wall = time.perf_counter() - t0
+    ends = [r['end'] for r in log.requests[first:]]
+    steady = (len(ends) - 1) / (ends[-1] - ends[0])
+    return results, wall, steady
+
+
+def evaluate_arrff():
+    """Writes the synthetic set, evaluates AR-RFF on the card at (1333, 800)
+    in bf16 and f32 with the test CLI's functions, and checks: one launch
+    of A and of B per image; the loader's detections equal to
+    ``inference_detector``'s on the same files; A and B against their plain
+    versions on real images' arguments; the card's f32 stats against the
+    CPU's plain path at ``CPU_SCALE``, with ground truth seeded from the
+    CPU's detections. Returns whether all held, the launches of the timed
+    runs, and the rows' additions for A and B."""
+    from arfe_tpu_torch.apis import inference_detector, single_device_test
+    from arfe_tpu_torch.data import synthetic
+    from arfe_tpu_torch.ops import fused_attention as fa
+    from arfe_tpu_torch.ops import roi_align as ra
+    from arfe_tpu_torch.tools.profile_serve import _busy_us
+    from arfe_tpu_torch.tools.test import build_test_loader
+    try:
+        import PIL
+        print(f'PIL imports: yes, {PIL.__version__} (JPEG is read)')
+    except ImportError:
+        print('PIL imports: no (only PNG is read)')
+    t0 = time.time()
+    images = synthetic.write_images(EVAL_ROOT, EVAL_SIZES, seed=7)
+    synthetic.write_annotations(f'{EVAL_ROOT}/ann.json', images)
+    print(f'eval set: {len(images)} PNGs at {EVAL_SIZES} written in '
+          f'{time.time() - t0:.1f} s')
+    cfg = _eval_config()
+    model = build_detector(cfg, CLS_SCALE['arrff'])
+    dataset, loader = build_test_loader(cfg)
+    bf, f32, rows, ok = torch.bfloat16, torch.float32, [{}, {}], True
+    n = len(images)
+    t0 = time.perf_counter()
+    for i in range(n):
+        dataset[i]
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    print(f'eval host pipeline (read, resize, normalize, pad) in the main '
+          f'process: {host_ms:.2f} ms per image')
+    runs = {}
+    with RequestLog(model) as log:
+        for dt in (bf, f32):          # first runs: one-time set-up per shape
+            runs[dt, 'warm'] = _timed_run(model, loader, dt, log)[0]
+        # ground truth from the bf16 detections, so that the timed runs'
+        # evaluation does the work of a real one
+        synthetic.write_annotations(
+            f'{EVAL_ROOT}/ann.json', images,
+            synthetic.seed_ground_truth(images, runs[bf, 'warm']))
+        dataset, loader = build_test_loader(cfg)
+        first = len(log.requests)
+        fa.launches = ra.launches = ra.bwd_launches = 0
+        for dt in (bf, f32):
+            results, wall, steady = _timed_run(model, loader, dt, log)
+            t1 = time.perf_counter()
+            stats = dataset.evaluate(results, metric='bbox')
+            eval_s = time.perf_counter() - t1
+            reqs = [r for r in log.requests[first:] if r['dtype'] == dt]
+            card = sorted(r['card_ms'] for r in reqs)
+            print(f'eval {str(dt)[6:]} bs1 (1333, 800), {n} images, 2 loader '
+                  f'workers: {n / (wall + eval_s):.2f} images/s with the '
+                  f'evaluation ({wall:.3f} s the loader and the requests, '
+                  f'{eval_s:.3f} s evaluate), {steady:.2f} images/s after '
+                  f'the first request; a request on the card\'s clock: '
+                  f'median {card[len(card) // 2]:.2f} ms, '
+                  f'{min(card):.2f}-{max(card):.2f}; bbox_mAP '
+                  f'{stats["bbox_mAP"]:.4f}')
+            runs[dt] = results
+            rows[0][f'eval_images_per_s_{str(dt)[6:]}'] = n / (wall + eval_s)
+        launches = {'fused_attention': fa.launches, 'roi_align': ra.launches,
+                    'roi_align_bwd': ra.bwd_launches}
+        per_request = [r['launches'] for r in log.requests[first:]]
+    good = all(p == (1, 1) for p in per_request) \
+        and launches == {'fused_attention': 2 * n, 'roi_align': 2 * n,
+                         'roi_align_bwd': 0}
+    print(f'eval launches per request (attention, roi_align): '
+          f'{sorted(set(per_request))}, over the two runs {launches} '
+          f'{"ok" if good else "FAIL"}')
+    ok = ok and good
+    # the loader path's detections against inference_detector's
+    for dt in (bf, f32):
+        same = True
+        for i in range(3):
+            path = f'{EVAL_ROOT}/imgs/{images[i]["file_name"]}'
+            single = inference_detector(model, path, dtype=dt)
+            same = same and all(np.array_equal(a, b) for a, b in
+                                zip(single, runs[dt][i]))
+        print(f'eval {str(dt)[6:]}: the loader\'s detections of 3 images '
+              f'equal inference_detector\'s {"ok" if same else "FAIL"}')
+        ok = ok and same
+    with phase('arrff eval: kernels A and B on real images'):
+        for dt in (bf, f32):
+            ok = _check_eval_kernels(log, dt, rows) and ok
+    del log
+    # the card's busy share of an evaluation run
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    loader0 = build_test_loader(_eval_config(workers=0))[1]
+    for workers, ldr in ((0, loader0), (2, loader)):
+        t1 = time.perf_counter()
+        single_device_test(model, ldr, show_progress=False, dtype=bf)
+        wall = time.perf_counter() - t1
+        print(f'eval bf16 with {workers} loader workers: '
+              f'{n / wall:.2f} images/s ({wall:.3f} s, worker start-up '
+              f'included)')
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        single_device_test(model, loader0, show_progress=False, dtype=bf)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us(kernels)
+    print(f'eval bf16, 0 workers, under the profiler: {wall_us / n / 1e3:.2f}'
+          f' ms per image, device busy {busy / n / 1e3:.2f} ms, idle share '
+          f'{1 - busy / wall_us:.3f}')
+    with phase('arrff eval: card f32 against the CPU'):
+        ok = eval_reference_check(model, images) and ok
+    del model
+    torch.cuda.empty_cache()
+    return ok, launches, rows
+
+
+def eval_reference_check(model, images):
+    """The same weights and files on the CPU's plain path and on the card in
+    f32, at ``CPU_SCALE``; ground truth seeded from the CPU's detections.
+    The six bbox stats within 1e-3; detections the rule does not match are
+    printed."""
+    from arfe_tpu_torch.apis import init_detector, single_device_test
+    from arfe_tpu_torch.data import synthetic
+    from arfe_tpu_torch.tools.test import build_test_loader
+    cfg = _eval_config(CPU_SCALE)
+    cpu = init_detector(cfg, device='cpu')
+    cpu.load_state_dict(model.state_dict())
+    t0 = time.time()
+    want = single_device_test(cpu, build_test_loader(cfg)[1],
+                              show_progress=False)
+    cpu_s = time.time() - t0
+    got = single_device_test(model, build_test_loader(cfg)[1],
+                             show_progress=False, dtype=torch.float32)
+    synthetic.write_annotations(f'{EVAL_ROOT}/ann.json', images,
+                                synthetic.seed_ground_truth(images, want))
+    dataset = build_test_loader(cfg)[0]
+    s_cpu = dataset.evaluate(want, metric='bbox')
+    s_card = dataset.evaluate(got, metric='bbox')
+    diff = max(abs(s_cpu[k] - s_card[k]) for k in STATS)
+    ok = diff <= 1e-3 and 0.05 < s_cpu['bbox_mAP'] < 0.999
+    print(f'eval card f32 against the CPU plain path at {CPU_SCALE} '
+          f'({cpu_s:.1f} s on the CPU): CPU '
+          + ', '.join(f'{k} {s_cpu[k]:.4f}' for k in STATS) + '; card '
+          + ', '.join(f'{k} {s_card[k]:.4f}' for k in STATS)
+          + f'; largest difference {diff:.2e} (tol 1e-3) '
+          f'{"ok" if ok else "FAIL"}')
+    for i, (w, g) in enumerate(zip(want, got)):
+        missing = _unmatched(_flat(w), _flat(g))
+        extra = _unmatched(_flat(g), _flat(w))
+        if missing or extra:
+            print(f'  image {i}: CPU detections unmatched on the card '
+                  f'{missing[:5]}, card detections unmatched on the CPU '
+                  f'{extra[:5]} ({len(_flat(w))} and {len(_flat(g))} '
+                  'detections)')
+    return ok
+
+
 PHASE_SECONDS = {}
 
 
@@ -1047,6 +1441,10 @@ def main():
     # at random weights the "+fac" presence logits saturate: its
     # loss_multi_cls reads 1 + tanh(1) and can pass no gradient
     fac = arfe('fac', [(1, bf)] * 2, [bf, bf], ())
+    with phase('arrff: evaluate'):
+        ok_eval, launches_eval, eval_rows = evaluate_arrff()
+    rows[0].update(eval_rows[0])
+    rows[1].update(eval_rows[1])
     for row in rows:
         row['launches'] = launches[row['name']]
         row['launches_serve'] = launches_serve.get(row['name'], 0)
@@ -1054,10 +1452,12 @@ def main():
                                                       ('fac', fac)):
             row[f'launches_{name}_serve'] = serve_runs.get(row['name'], 0)
             row[f'launches_{name}_train'] = train_runs[row['name']]
+        row['launches_arrff_eval'] = launches_eval[row['name']]
     failed = [k for k, v in (('kernels', ok_kernels), ('serve', ok_serve),
                              ('reference', ok_ref), ('train', ok_train),
                              ('kernel C on a step', ok_step_rois),
-                             ('train reference', ok_train_ref)) if not v]
+                             ('train reference', ok_train_ref),
+                             ('arrff evaluate', ok_eval)) if not v]
     failed += [f'{name} {k}' for name, r in (('arrff', arrff), ('fac', fac))
                for k, v in r[0].items() if not v]
     print(f'phases: {len(PHASE_SECONDS)}, total {time.time() - t0:.1f} s')

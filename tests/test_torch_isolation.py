@@ -1,5 +1,6 @@
-"""The port stands alone: importing any of its modules, or ``chip_smoke``,
-loads no JAX and nothing of the JAX package; its entry point defaults to the
+"""The port stands alone: importing any of its modules (the data and
+evaluation path and the ``test`` CLI among them), or ``chip_smoke``, loads no
+JAX, no optax and nothing of the JAX package; its entry point defaults to the
 card."""
 import os
 import subprocess
@@ -16,12 +17,23 @@ import arfe_tpu_torch, chip_smoke
 for m in pkgutil.walk_packages(arfe_tpu_torch.__path__, 'arfe_tpu_torch.'):
     importlib.import_module(m.name)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'arfe_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'arfe_tpu'))
 missing = [m for m in ('arfe_tpu_torch.train.optimizer',
                        'arfe_tpu_torch.train.train_step',
                        'arfe_tpu_torch.train.bench',
                        'arfe_tpu_torch.models.losses.cross_entropy_loss',
-                       'arfe_tpu_torch.core.bbox.samplers')
+                       'arfe_tpu_torch.core.bbox.samplers',
+                       'arfe_tpu_torch.data.image_io',
+                       'arfe_tpu_torch.data.pipelines',
+                       'arfe_tpu_torch.data.custom',
+                       'arfe_tpu_torch.data.coco_api',
+                       'arfe_tpu_torch.data.coco',
+                       'arfe_tpu_torch.data.builder',
+                       'arfe_tpu_torch.core.evaluation.coco_eval',
+                       'arfe_tpu_torch.core.evaluation.class_names',
+                       'arfe_tpu_torch.utils.checkpoint',
+                       'arfe_tpu_torch.apis.test',
+                       'arfe_tpu_torch.tools.test')
            if m not in sys.modules]
 print('modules:', len(sys.modules), 'forbidden:', bad, 'missing:', missing)
 sys.exit(1 if bad or missing else 0)
