@@ -6,3 +6,5 @@ so a JAX parameter tree converts 1:1 into a ``state_dict``
 are built on first use (``ops.cuda_build``). Entry point:
 ``arfe_tpu_torch.apis.init_detector``.
 """
+
+__version__ = '0.1.0'

@@ -1,4 +1,6 @@
 from .inference import inference_detector, init_detector
 from .test import single_device_test
+from .train import set_random_seed, train_detector
 
-__all__ = ['inference_detector', 'init_detector', 'single_device_test']
+__all__ = ['inference_detector', 'init_detector', 'set_random_seed',
+           'single_device_test', 'train_detector']

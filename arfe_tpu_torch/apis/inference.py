@@ -22,24 +22,13 @@ from ..models import build_detector
 from ..utils.checkpoint import load_checkpoint
 
 
-def load_state_dict_file(path):
-    """An mmdet-style checkpoint (``{'state_dict': ..., 'meta': ...}`` or a
-    bare state_dict) as a state_dict: ``module.`` prefixes stripped and
-    ``num_batches_tracked`` counters (frozen BatchNorm keeps none) dropped."""
-    ckpt = torch.load(path, map_location='cpu', weights_only=True)
-    state = ckpt.get('state_dict', ckpt)
-    return {(k[7:] if k.startswith('module.') else k): v
-            for k, v in state.items()
-            if not k.endswith('num_batches_tracked')}
-
-
 def init_detector(config, checkpoint=None, device=None, train=False):
     """Build a detector from a config (path or :class:`Config`).
 
     Args:
         checkpoint: optional weights, loaded with ``strict=True``: the JAX
-            package's native ``.pkl`` (read without JAX,
-            ``utils.checkpoint``) or an mmdet-style ``.pth``. Without one
+            package's native ``.pkl`` (read without JAX), the port's or an
+            mmdet-style ``.pth`` (``utils.checkpoint``). Without one
             the weights are random, drawn from a ``torch.Generator`` seeded
             with 0.
         device: ``None`` means ``'cuda'``, which raises where there is no
@@ -66,11 +55,8 @@ def init_detector(config, checkpoint=None, device=None, train=False):
     if checkpoint is None:
         init_weights(model, torch.Generator().manual_seed(0))
     else:
-        if str(checkpoint).endswith('.pkl'):
-            state, meta = load_checkpoint(checkpoint)
-            classes = meta.get('CLASSES')
-        else:
-            state = load_state_dict_file(checkpoint)
+        state, meta, _, _ = load_checkpoint(checkpoint)
+        classes = meta.get('CLASSES')
         model.load_state_dict(state, strict=True)
     model.CLASSES = classes if classes is not None else get_classes('coco')
     model.cfg = config

@@ -194,8 +194,12 @@ class Config:
         super().__setattr__('_cfg_dict', _to_config_dict(merged))
 
     def dump(self, file: str | None = None) -> str:
+        """The config as a Python file of ``name = value`` lines, which
+        :meth:`fromfile` loads back (as mmcv's ``Config.dump`` writes it):
+        the work dir's copy of a training config serves the ``test`` CLI."""
         import pprint
-        s = pprint.pformat(self.todict(), width=100, sort_dicts=False)
+        s = ''.join(f'{k} = {pprint.pformat(v, width=100, sort_dicts=False)}'
+                    '\n' for k, v in self.todict().items())
         if file is not None:
             os.makedirs(osp.dirname(osp.abspath(file)), exist_ok=True)
             with open(file, 'w') as f:

@@ -4,9 +4,8 @@
 Transforms take and return mmdet-style ``results`` dicts, so the reference's
 pipeline configs load unchanged, and give the JAX package's arrays bit for
 bit: images are read and resized by ``image_io`` in place of OpenCV. The
-test-time transforms are complete. ``LoadAnnotations`` and
-``DefaultFormatBundle`` load from a training config, and their bodies come
-with the training run (ROADMAP §1). Test-time augmentation
+train and test pipelines of the box detectors are complete; masks and
+segmentation maps come with Mask R-CNN, and test-time augmentation
 (``MultiScaleFlipAug`` over several scales or with flips) is queued with
 ``aug_test``.
 """
@@ -91,17 +90,32 @@ class LoadImage:
 
 @PIPELINES.register_module()
 class LoadAnnotations:
-    """(ref: pipelines/loading.py:153-283). Loads from a config; the body
-    comes with the training run."""
+    """(ref: pipelines/loading.py:153-283): boxes (and ignored boxes) and
+    labels. Masks and segmentation maps come with Mask R-CNN."""
 
     def __init__(self, with_bbox=True, with_label=True, with_mask=False,
                  with_seg=False, poly2mask=True):
-        pass
+        self.with_bbox = with_bbox
+        self.with_label = with_label
+        self.with_mask = with_mask
+        self.with_seg = with_seg
 
     def __call__(self, results):
-        raise NotImplementedError(
-            'LoadAnnotations: the train pipeline is ported with the '
-            'training run (ROADMAP §1)')
+        if self.with_mask or self.with_seg:
+            raise NotImplementedError(
+                'LoadAnnotations: masks and segmentation maps come with Mask '
+                'R-CNN (ROADMAP §1)')
+        ann = results['ann_info']
+        if self.with_bbox:
+            results['gt_bboxes'] = ann['bboxes'].copy()
+            if ann.get('bboxes_ignore') is not None:
+                results['gt_bboxes_ignore'] = ann['bboxes_ignore'].copy()
+                results.setdefault('bbox_fields', []).append(
+                    'gt_bboxes_ignore')
+            results.setdefault('bbox_fields', []).append('gt_bboxes')
+        if self.with_label:
+            results['gt_labels'] = ann['labels'].copy()
+        return results
 
 
 def _rescale_size(old_size, scale):
@@ -267,13 +281,20 @@ class Pad:
 
 @PIPELINES.register_module()
 class DefaultFormatBundle:
-    """(ref: pipelines/formating.py:101-140). Loads from a config; the body
-    comes with the training run."""
+    """(ref: pipelines/formating.py:101-140): the image contiguous f32 HWC,
+    the boxes f32, the labels int64; the loader's collate makes the
+    tensors."""
 
     def __call__(self, results):
-        raise NotImplementedError(
-            'DefaultFormatBundle: the train pipeline is ported with the '
-            'training run (ROADMAP §1)')
+        if 'img' in results:
+            results['img'] = np.ascontiguousarray(
+                results['img'].astype(np.float32))
+        for key in ('gt_bboxes', 'gt_bboxes_ignore'):
+            if key in results:
+                results[key] = results[key].astype(np.float32)
+        if 'gt_labels' in results:
+            results['gt_labels'] = results['gt_labels'].astype(np.int64)
+        return results
 
 
 @PIPELINES.register_module()

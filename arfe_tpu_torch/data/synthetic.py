@@ -1,7 +1,14 @@
-"""A synthetic COCO-style data set written without OpenCV: smooth random PNG
-images and, once a detector has run over them, ground truth seeded from its
-detections (jittered) plus boxes nothing detects, so that AP lies inside
-(0, 1). The tests and ``chip_smoke.py`` evaluate on it."""
+"""Synthetic COCO-style data sets written without OpenCV.
+
+- Evaluation: smooth random PNG images and, once a detector has run over
+  them, ground truth seeded from its detections (jittered) plus boxes
+  nothing detects, so that AP lies inside (0, 1).
+- Training: :func:`write_box_set`, solid rectangles on the same smooth
+  background, each box its ground truth (the port's copy of the set
+  ``tools/e2e_smoke.py`` draws with OpenCV).
+
+The tests, ``tools/e2e_smoke.py`` and ``chip_smoke.py`` train and evaluate
+on them."""
 from __future__ import annotations
 
 import json
@@ -24,17 +31,21 @@ def write_images(root, sizes, seed=0):
     rng = np.random.RandomState(seed)
     images = []
     for i, (h, w) in enumerate(sizes):
-        small = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3))
         imwrite_png(os.path.join(root, 'imgs', f'{i}.png'),
-                    imresize(small.astype(np.uint8), (w, h)))
+                    _background(rng, h, w))
         images.append(dict(id=i + 1, width=w, height=h, file_name=f'{i}.png'))
     return images
 
 
-def write_annotations(path, images, annotations=()):
+def _background(rng, h, w):
+    small = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3))
+    return imresize(small.astype(np.uint8), (w, h))
+
+
+def write_annotations(path, images, annotations=(), categories=CATEGORIES):
     with open(path, 'w') as f:
         json.dump(dict(images=images, annotations=list(annotations),
-                       categories=CATEGORIES), f)
+                       categories=list(categories)), f)
 
 
 def seed_ground_truth(images, results, seed=3):
@@ -67,3 +78,35 @@ def seed_ground_truth(images, results, seed=3):
             add(img, int(rng.randint(1, len(CATEGORIES) + 1)), float(x),
                 float(y), float(x + bw), float(y + bh))
     return anns
+
+
+def write_box_set(root, sizes, boxes_per_image=(3, 6), seed=0,
+                  categories=CATEGORIES):
+    """PNGs ``root/imgs/{i}.png`` of (h, w) ``sizes``, each the smooth
+    background of :func:`write_images` with ``boxes_per_image`` (lo, hi)
+    solid rectangles of random colour, of 8-40% of the image's shorter side,
+    and ``root/ann.json``: each rectangle a box of a random one of
+    ``categories`` (by default COCO's 80). Returns the COCO ``images`` and
+    ``annotations``."""
+    os.makedirs(os.path.join(root, 'imgs'), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    images, anns = [], []
+    for i, (h, w) in enumerate(sizes):
+        img = _background(rng, h, w)
+        side = min(h, w)
+        for _ in range(rng.randint(boxes_per_image[0],
+                                   boxes_per_image[1] + 1)):
+            bw, bh = rng.randint(max(int(side * 0.08), 4), int(side * 0.4),
+                                 2)
+            x, y = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            img[y:y + bh, x:x + bw] = rng.randint(0, 256, 3)
+            anns.append(dict(
+                id=len(anns) + 1, image_id=i + 1,
+                category_id=categories[rng.randint(len(categories))]['id'],
+                bbox=[float(x), float(y), float(bw), float(bh)],
+                area=float(bw * bh), iscrowd=0))
+        imwrite_png(os.path.join(root, 'imgs', f'{i}.png'), img)
+        images.append(dict(id=i + 1, width=w, height=h, file_name=f'{i}.png'))
+    write_annotations(os.path.join(root, 'ann.json'), images, anns,
+                      categories)
+    return images, anns

@@ -7,7 +7,9 @@ sum, and the update is ``-lr(it) * trace`` with the first step at
 ``lr(0)``. Frozen parameters (by config prefix, or ``requires_grad`` off)
 are left out of the optimizer: they neither move nor decay. Every other
 parameter decays, BatchNorm's affine weight and bias included; BatchNorm's
-running statistics are buffers. ``paramwise_cfg``, ``grad_clip`` and the
+running statistics are buffers. ``grad_clip`` is optax's
+``clip_by_global_norm`` over the trainable gradients, before the weight
+decay and the momentum (:func:`build_grad_clip`). ``paramwise_cfg`` and the
 Adam / RMSprop optimizers are not ported yet.
 """
 from __future__ import annotations
@@ -90,3 +92,39 @@ def build_optimizer(optimizer_cfg, lr_schedule, model, frozen_prefixes=()):
         raise KeyError(f'unsupported SGD options {sorted(cfg)}')
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lr_schedule)
     return optimizer, scheduler
+
+
+def build_grad_clip(grad_clip, optimizer):
+    """``clip() -> norm`` for the config's ``optimizer_config.grad_clip``
+    (``dict(max_norm, norm_type=2)``), or ``None`` without one.
+
+    ``clip`` scales the gradients of ``optimizer``'s parameters (the
+    trainable ones) as ``optax.clip_by_global_norm`` does: by ``max_norm /
+    norm`` where their global 2-norm ``norm`` passes ``max_norm``, computed
+    as ``(g / norm) * max_norm``, and not at all otherwise (``torch.nn.
+    utils.clip_grad_norm_`` scales by ``max_norm / (norm + 1e-6)`` whenever
+    that is below 1). It returns the norm, on the device, without a host
+    synchronisation.
+    """
+    if not grad_clip:
+        return None
+    cfg = dict(grad_clip)
+    max_norm = float(cfg.pop('max_norm'))
+    norm_type = cfg.pop('norm_type', 2)
+    if norm_type != 2 or cfg:
+        raise NotImplementedError(
+            f'grad_clip: only the global 2-norm is ported, got '
+            f'norm_type={norm_type!r} and {sorted(cfg)}')
+    params = [p for group in optimizer.param_groups for p in group['params']]
+
+    def clip():
+        grads = [p.grad for p in params if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+            grads)))
+        keep = norm < max_norm
+        one = torch.ones((), device=norm.device)
+        torch._foreach_div_(grads, torch.where(keep, one, norm))
+        torch._foreach_mul_(grads, torch.where(keep, one, max_norm))
+        return norm
+
+    return clip

@@ -1,6 +1,12 @@
 """One training step on one card (counterpart of
-``arfe_tpu/train/train_step.py:16-60``): forward, losses, backward, SGD."""
+``arfe_tpu/train/train_step.py:16-60``): forward, losses, backward, the
+gradient clip, SGD."""
 from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .optimizer import build_grad_clip
 
 
 def parse_losses(losses):
@@ -18,15 +24,30 @@ def parse_losses(losses):
     return total, log_vars
 
 
-def make_train_step(model, optimizer, scheduler=None):
+def iteration_generator(seed, global_it, device):
+    """The samplers' ``torch.Generator`` of iteration ``global_it`` of a run
+    seeded with ``seed``, on ``device``: its state depends on nothing else,
+    so a resumed run draws what the uninterrupted run would have drawn (the
+    counterpart of ``jax.random.fold_in(key, global_it)``,
+    ``arfe_tpu/apis/train.py:160-176``)."""
+    state = np.random.SeedSequence([seed, global_it]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def make_train_step(model, optimizer, scheduler=None, grad_clip=None):
     """``step(batch, gen) -> log_vars``.
 
     ``batch`` holds ``img`` (B, H, W, 3), ``img_shape`` (B, 2),
     ``gt_bboxes`` (B, G, 4), ``gt_valid`` (B, G) and ``gt_labels`` (B, G)
     on the model's device; ``gen`` is the ``torch.Generator`` of the
-    samplers. The log values are detached f32 scalars on the device (no
-    host synchronisation).
+    samplers. ``grad_clip`` (``dict(max_norm, norm_type=2)``) clips the
+    gradients between the backward and the update (``optimizer.
+    build_grad_clip``). The log values are detached f32 scalars on the
+    device (no host synchronisation).
     """
+    clip = build_grad_clip(grad_clip, optimizer)
+
     def step(batch, gen):
         losses = model.forward_train(
             batch['img'], batch['img_shape'], batch['gt_bboxes'],
@@ -34,6 +55,8 @@ def make_train_step(model, optimizer, scheduler=None):
         total, log_vars = parse_losses(losses)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if clip is not None:
+            clip()
         optimizer.step()
         if scheduler is not None:
             scheduler.step()

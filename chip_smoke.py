@@ -64,13 +64,32 @@
     seeded from the CPU's detections. Prints whether PIL imports, the host
     pipeline's time per image, images per second, each request's time on
     the card's clock and, under the profiler, the device's idle share.
+13. Trains AR-RFF (the same port config) through the train CLI
+    (``tools.train.main``) at full width on a box set of 8 PNGs at COCO's
+    two shapes under ``build/train_coco``: bs2 bf16 for 2 epochs of 4
+    iterations with validation at epoch 2, then again from a copy of
+    ``epoch_1.pth`` with ``--resume-from`` for epoch 2, then the test CLI
+    (``tools.test.main``) on ``latest.pth``. Checks that every iteration
+    launches A, B and C once (A and B once per validated image), that the
+    logged losses are finite and ``train.log.json`` parses, that the
+    checkpoints hold the optimizer and scheduler, that the frozen stem and
+    layer1 stay and the other parameters move between ``epoch_1.pth`` and
+    ``epoch_2.pth``, that the resumed epoch 2 has the uninterrupted run's
+    images, flips and LRs and its first iteration's losses, that the test
+    CLI gives the six bbox stats and the card's f32 detections with
+    ``latest.pth`` match the CPU's plain path's at (667, 400), and that the
+    validation wrote its line. Prints the seconds per iteration, the
+    loader's share, images per second, the idle share under the profiler,
+    and the checkpoints' save and load seconds and size.
 
 Prints each phase's wall seconds and the total, one JSON line of kernel
 numbers (``launches`` counts the flagship's training run,
 ``launches_serve`` its serving run, ``launches_{arrff,fac}_{serve,train}``
 those of AR-RFF and "+fac", ``launches_arrff_eval`` the two timed
-evaluation runs; the ``_arrff_r*`` keys are kernels B and C at AR-RFF's
-shapes, the ``_eval_*`` keys A and B on a real image's arguments), then the
+evaluation runs, ``launches_arrff_trainrun`` the two training runs of
+phase 13 with its validation; the ``_arrff_r*`` keys are kernels B and C
+at AR-RFF's shapes, the ``_eval_*`` keys A and B on a real image's
+arguments, the ``train_run_*`` keys phase 13's numbers), then the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``. Exits non-zero, with no result line, if there is no CUDA device or
 any phase fails.
@@ -79,6 +98,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import sys
 import time
 
@@ -1029,12 +1049,14 @@ STATS = ('bbox_mAP', 'bbox_AP50', 'bbox_AP75', 'bbox_APs', 'bbox_APm',
          'bbox_APl')
 
 
-def _eval_config(scale=(1333, 800), workers=None):
-    """The AR-RFF port config on the synthetic set at ``scale``."""
+def _eval_config(scale=(1333, 800), workers=None, root=EVAL_ROOT,
+                 path=PORT_CFG):
+    """The AR-RFF config at ``path`` on the synthetic set under ``root`` at
+    ``scale``."""
     from arfe_tpu_torch.config import Config
-    cfg = Config.fromfile(PORT_CFG)
-    cfg.data.test.update(ann_file=f'{EVAL_ROOT}/ann.json',
-                         img_prefix=f'{EVAL_ROOT}/imgs')
+    cfg = Config.fromfile(path)
+    cfg.data.test.update(ann_file=f'{root}/ann.json',
+                         img_prefix=f'{root}/imgs')
     cfg.data.test.pipeline[1].img_scale = scale
     if workers is not None:
         cfg.data.workers_per_gpu = workers
@@ -1348,15 +1370,19 @@ def evaluate_arrff():
     return ok, launches, rows
 
 
-def eval_reference_check(model, images):
-    """The same weights and files on the CPU's plain path and on the card in
-    f32, at ``CPU_SCALE``; ground truth seeded from the CPU's detections.
-    The six bbox stats within 1e-3; detections the rule does not match are
-    printed."""
+def eval_reference_check(model, images, root=EVAL_ROOT, path=PORT_CFG,
+                         match=False):
+    """The same weights and files (``root``) on the CPU's plain path and on
+    the card in f32, at ``CPU_SCALE``; ground truth seeded from the CPU's
+    detections. The six bbox stats within 1e-3, and the CPU's mAP inside
+    (0.05, 0.999); detections the rule does not match are printed. With
+    ``match``, every detection of each side must instead be matched on the
+    other (weights whose detections are under the 2 px that ground truth
+    is seeded from leave the stats at 0)."""
     from arfe_tpu_torch.apis import init_detector, single_device_test
     from arfe_tpu_torch.data import synthetic
     from arfe_tpu_torch.tools.test import build_test_loader
-    cfg = _eval_config(CPU_SCALE)
+    cfg = _eval_config(CPU_SCALE, root=root, path=path)
     cpu = init_detector(cfg, device='cpu')
     cpu.load_state_dict(model.state_dict())
     t0 = time.time()
@@ -1365,28 +1391,400 @@ def eval_reference_check(model, images):
     cpu_s = time.time() - t0
     got = single_device_test(model, build_test_loader(cfg)[1],
                              show_progress=False, dtype=torch.float32)
-    synthetic.write_annotations(f'{EVAL_ROOT}/ann.json', images,
+    synthetic.write_annotations(f'{root}/ann.json', images,
                                 synthetic.seed_ground_truth(images, want))
     dataset = build_test_loader(cfg)[0]
     s_cpu = dataset.evaluate(want, metric='bbox')
     s_card = dataset.evaluate(got, metric='bbox')
     diff = max(abs(s_cpu[k] - s_card[k]) for k in STATS)
-    ok = diff <= 1e-3 and 0.05 < s_cpu['bbox_mAP'] < 0.999
-    print(f'eval card f32 against the CPU plain path at {CPU_SCALE} '
-          f'({cpu_s:.1f} s on the CPU): CPU '
-          + ', '.join(f'{k} {s_cpu[k]:.4f}' for k in STATS) + '; card '
-          + ', '.join(f'{k} {s_card[k]:.4f}' for k in STATS)
-          + f'; largest difference {diff:.2e} (tol 1e-3) '
-          f'{"ok" if ok else "FAIL"}')
+    unmatched, detections = 0, 0
     for i, (w, g) in enumerate(zip(want, got)):
         missing = _unmatched(_flat(w), _flat(g))
         extra = _unmatched(_flat(g), _flat(w))
+        unmatched += len(missing) + len(extra)
+        detections += len(_flat(w)) + len(_flat(g))
         if missing or extra:
             print(f'  image {i}: CPU detections unmatched on the card '
                   f'{missing[:5]}, card detections unmatched on the CPU '
                   f'{extra[:5]} ({len(_flat(w))} and {len(_flat(g))} '
                   'detections)')
+    ok = diff <= 1e-3 and (unmatched == 0 and detections > 0 if match
+                           else 0.05 < s_cpu['bbox_mAP'] < 0.999)
+    print(f'eval card f32 against the CPU plain path at {CPU_SCALE} '
+          f'({cpu_s:.1f} s on the CPU): CPU '
+          + ', '.join(f'{k} {s_cpu[k]:.4f}' for k in STATS) + '; card '
+          + ', '.join(f'{k} {s_card[k]:.4f}' for k in STATS)
+          + f'; largest difference {diff:.2e} (tol 1e-3); {unmatched} of '
+          f'{detections} detections unmatched'
+          + (' (tol 0)' if match else '') + f' {"ok" if ok else "FAIL"}')
     return ok
+
+
+# --------------------------------------------------------------------------
+# phase 13: AR-RFF trained through the train CLI on a synthetic COCO set: 2
+# epochs in bf16, epoch 2 again resumed from a copy of epoch_1.pth, then the
+# test CLI on latest.pth
+# --------------------------------------------------------------------------
+
+TRAIN_ROOT = 'build/train_coco'
+# COCO's two shapes, four of each: two aspect groups, 4 iterations of bs2
+# an epoch, padded at (1333, 800) to 800x1088 and 1088x800
+TRAIN_SIZES = [(480, 640), (640, 480)] * 4
+# the uninterrupted run's iterations, the resumed run's, and the validated
+# images of the uninterrupted run (evaluation.interval=2)
+TRAIN_ITERS, RESUMED_ITERS, VAL_IMAGES = 8, 4, 8
+
+
+class TrainRunLog:
+    """Wraps ``train_detector``'s ``make_train_step``, ``save_checkpoint``
+    and ``load_checkpoint``. Per iteration it keeps the kernels' launches,
+    the batch's images and flips, the LR, the step's log values (on the
+    device), when the step was called and when the card finished it (the
+    wrapper synchronises, where the loop's per-iteration log synchronises
+    anyway); with ``track_grads`` each trainable parameter's largest
+    |gradient|; over the iterations ``profile`` (a pair of indices), the
+    device's busy time under ``torch.profiler``. It also times each save
+    and load of a checkpoint."""
+
+    def __init__(self, track_grads=False, profile=None):
+        from arfe_tpu_torch.apis import train as api
+        self.api, self.track_grads, self.profile = api, track_grads, profile
+        self.originals = (api.make_train_step, api.save_checkpoint,
+                          api.load_checkpoint)
+        self.iters, self.saves, self.loads = [], [], []
+        self.names, self.prof, self.window = None, None, None
+
+    def __enter__(self):
+        make, save, load = self.originals
+        self.api.make_train_step = self._make
+        self.api.save_checkpoint = self._timed(save, self.saves)
+        self.api.load_checkpoint = self._timed(load, self.loads)
+        return self
+
+    def __exit__(self, *exc):
+        (self.api.make_train_step, self.api.save_checkpoint,
+         self.api.load_checkpoint) = self.originals
+
+    @staticmethod
+    def _timed(fn, out):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            out.append(time.perf_counter() - t0)
+            return result
+        return timed
+
+    def _make(self, model, optimizer, scheduler, grad_clip):
+        from arfe_tpu_torch.ops import fused_attention as fa
+        from arfe_tpu_torch.ops import roi_align as ra
+        step = self.originals[0](model, optimizer, scheduler, grad_clip)
+        by_id = {id(p): k for k, p in model.named_parameters()}
+        params = [p for g in optimizer.param_groups for p in g['params']]
+        self.names = [by_id[id(p)] for p in params]
+
+        def logged(batch, gen):
+            i = len(self.iters)
+            if self.profile and i == self.profile[0]:
+                self.prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                self.prof.start()
+                self.window = [time.perf_counter()]
+            start = time.perf_counter()
+            counts = (fa.launches, ra.launches, ra.bwd_launches)
+            lr = optimizer.param_groups[0]['lr']
+            out = step(batch, gen)
+            launches = tuple(n - c for n, c in zip(
+                (fa.launches, ra.launches, ra.bwd_launches), counts))
+            rec = dict(images=[m['ori_filename'] for m in batch['img_metas']],
+                       flips=[bool(m['flip']) for m in batch['img_metas']],
+                       lr=lr, launches=launches, logs=out, start=start)
+            if self.track_grads:
+                grads = [p.grad if p.grad is not None
+                         else torch.zeros((), device=p.device) for p in params]
+                rec['g_max'] = torch.stack(torch._foreach_norm(
+                    grads, float('inf'))).tolist()
+            torch.cuda.synchronize()
+            rec['end'] = time.perf_counter()
+            if self.profile and i == self.profile[1]:
+                self.window.append(time.perf_counter())
+                self.prof.stop()
+            self.iters.append(rec)
+            return out
+
+        return logged
+
+    def idle_share(self):
+        """The profiled window's wall ms per iteration, device busy ms per
+        iteration and idle share."""
+        from arfe_tpu_torch.tools.profile_serve import _busy_us
+        kernels = [e for e in self.prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        n = self.profile[1] - self.profile[0] + 1
+        wall_us = (self.window[1] - self.window[0]) * 1e6
+        busy = _busy_us(kernels)
+        return wall_us / n / 1e3, busy / n / 1e3, 1 - busy / wall_us
+
+
+def _train_cli_args(work, extra=()):
+    data = [f'data.{split}.{k}={TRAIN_ROOT}/{v}' for split in
+            ('train', 'val', 'test')
+            for k, v in (('ann_file', 'ann.json'), ('img_prefix', 'imgs/'))]
+    return [PORT_CFG, '--work-dir', work, '--seed', '0', '--dtype', 'bf16',
+            '--options', *data, 'model.pretrained=None', 'total_epochs=2',
+            'log_config.interval=1', 'evaluation.interval=2', *extra]
+
+
+def _train_run_timing(log):
+    """Seconds per iteration (from one step's call to the next's, within an
+    epoch, the first iteration of the run left out) and, of each, the
+    wait before the step: the loader, the batch's copy to the card and the
+    log line."""
+    per_epoch = TRAIN_ITERS // 2
+    pairs = [(log.iters[i], log.iters[i + 1]) for i in range(TRAIN_ITERS - 1)
+             if (i + 1) % per_epoch and i > 0]
+    its = sorted(b['start'] - a['start'] for a, b in pairs)
+    waits = sorted(b['start'] - a['end'] for a, b in pairs)
+    shares = sorted((b['start'] - a['end']) / (b['start'] - a['start'])
+                    for a, b in pairs)
+    return its, waits, shares
+
+
+def _moved_check(log, first, second, frozen_prefixes):
+    """(d): between the two checkpoints' weights the frozen stem and layer1
+    are equal, and every other trainable tensor moved whose gradient was, in
+    some iteration between them, large enough for the step to move it in
+    f32 (phase 5's rule: the largest |lr g| above 2^-20 of the largest
+    |p|); those with a gradient exactly 0 in every iteration, or too small
+    for the warm-up learning rate, are named."""
+    frozen = [k for k in first if any(k.startswith(f)
+                                      for f in frozen_prefixes)]
+    frozen_moved = [k for k in frozen if not torch.equal(first[k],
+                                                         second[k])]
+    had_grad, movable = set(), set()
+    for rec in log.iters:
+        for k, g in zip(log.names, rec['g_max']):
+            if g > 0:
+                had_grad.add(k)
+            if rec['lr'] * g > 2.0 ** -20 * float(first[k].abs().max()):
+                movable.add(k)
+    unchanged = [k for k in log.names if torch.equal(first[k], second[k])]
+    stuck = [k for k in unchanged if k in movable]
+    small = [k for k in unchanged if k in had_grad and k not in movable]
+    zero = [k for k in log.names if k not in had_grad]
+    moved = len(log.names) - len(unchanged)
+    good = not frozen_moved and not stuck and len(frozen) > 10 and moved > 150
+    print(f'train run (d) epoch_1.pth -> epoch_2.pth: frozen tensors '
+          f'{len(frozen)}, moved {frozen_moved}; {moved}'
+          f' of {len(log.names)} trainable moved; unchanged with a gradient '
+          f'large enough to move them {stuck}; unchanged, the gradient too '
+          f'small for the learning rate {small}; gradient exactly 0 in every '
+          f'iteration {zero} {"ok" if good else "FAIL"}')
+    return good
+
+
+# classifier scales tried for the train run's card-against-CPU check, in
+# turn: at random weights and after a few iterations from them, the class
+# logits reach tens to hundreds, and where the softmax rounds to 1 the
+# detection cut falls among ties (phase 12's CLS_SCALE)
+SPREAD_SCALES = (1.0, 0.3, 0.1, 0.03, 0.01, 0.003, 0.001)
+
+
+def _spread_classifier(model, cfg):
+    """Scales the card model's classifier (weight and bias, so every logit)
+    by the first of ``SPREAD_SCALES`` at which each image of ``cfg``'s test
+    set gets at least 10 detections and no score reaches 0.999, on the card
+    in f32. Returns whether one did."""
+    from arfe_tpu_torch.apis import single_device_test
+    from arfe_tpu_torch.tools.test import build_test_loader
+    fc = model.roi_head.bbox_head.fc_cls
+    loader = build_test_loader(cfg)[1]
+    applied, readings = 1.0, []
+    for scale in SPREAD_SCALES:
+        with torch.no_grad():
+            fc.weight.mul_(scale / applied)
+            fc.bias.mul_(scale / applied)
+        applied = scale
+        results = single_device_test(model, loader, show_progress=False)
+        counts = [len(_flat(r)) for r in results]
+        top = max((d[0] for r in results for d in _flat(r)), default=0.0)
+        readings.append((scale, counts, round(top, 4)))
+        if min(counts) >= 10 and top < 0.999:
+            print(f'train run (f) classifier scaled by {scale:g} (scale, '
+                  f'detections per image, top score: {readings})')
+            return True
+    print(f'train run (f) no classifier scale spreads the scores: '
+          f'{readings} FAIL')
+    return False
+
+
+def train_run_arrff(name_limit):
+    """Writes the box set, trains AR-RFF at full width through
+    ``tools.train.main`` (bs2, bf16, 2 epochs, validation at epoch 2),
+    resumes a copy of ``epoch_1.pth`` for epoch 2, and runs
+    ``tools.test.main`` on ``latest.pth``. Checks (a)-(g) of the phase:
+    (a) A, B and C launch once per iteration (and A, B once per validated
+    image); (b) every logged loss is finite, ``train.log.json`` parses; (c)
+    ``epoch_1.pth``, ``epoch_2.pth`` and ``latest.pth`` hold the optimizer
+    and the scheduler; (d) ``_moved_check``; (e) the resumed epoch 2 has the
+    uninterrupted run's images and flips batch by batch and its LRs, and
+    its first iteration's losses; (f) the test CLI gives the six bbox
+    stats, and the card's f32 detections with ``latest.pth`` match the
+    CPU's plain path's one for one (phase 12's rule and classifier
+    scaling; ``eval_reference_check(match=True)``); (g) the
+    validation wrote a ``mode='val'`` line. Returns whether all held and
+    the launches of the two training runs."""
+    import shutil
+
+    from arfe_tpu_torch.apis import init_detector
+    from arfe_tpu_torch.data import synthetic
+    from arfe_tpu_torch.ops import fused_attention as fa
+    from arfe_tpu_torch.ops import roi_align as ra
+    from arfe_tpu_torch.tools import test as test_cli
+    from arfe_tpu_torch.tools import train as train_cli
+    from arfe_tpu_torch.train import frozen_prefixes_from_cfg
+    from arfe_tpu_torch.utils.checkpoint import load_checkpoint
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    t0 = time.time()
+    images, anns = synthetic.write_box_set(TRAIN_ROOT, TRAIN_SIZES, seed=11)
+    print(f'train set: {len(images)} PNGs at {TRAIN_SIZES[:2]}, '
+          f'{len(anns)} boxes, written in {time.time() - t0:.1f} s')
+    work, resumed = f'{TRAIN_ROOT}/work', f'{TRAIN_ROOT}/work_resumed'
+    ok = True
+    fa.launches = ra.launches = ra.bwd_launches = 0
+    with TrainRunLog() as run:
+        history = train_cli.main(_train_cli_args(work))
+    os.makedirs(resumed)
+    shutil.copy(f'{work}/epoch_1.pth', f'{resumed}/epoch_1.pth')
+    with TrainRunLog(track_grads=True, profile=(1, 2)) as rerun:
+        history_resumed = train_cli.main(_train_cli_args(
+            resumed, ['--resume-from', f'{resumed}/epoch_1.pth',
+                      '--no-validate']))
+    launches = {'fused_attention': fa.launches, 'roi_align': ra.launches,
+                'roi_align_bwd': ra.bwd_launches}
+    # (a)
+    per_iter = [r['launches'] for r in run.iters + rerun.iters]
+    want = {'fused_attention': TRAIN_ITERS + RESUMED_ITERS + VAL_IMAGES,
+            'roi_align': TRAIN_ITERS + RESUMED_ITERS + VAL_IMAGES,
+            'roi_align_bwd': TRAIN_ITERS + RESUMED_ITERS}
+    good = len(run.iters) == TRAIN_ITERS \
+        and len(rerun.iters) == RESUMED_ITERS \
+        and set(per_iter) == {(1, 1, 1)} and launches == want
+    print(f'train run (a) launches per iteration (attention, roi_align, '
+          f'roi_align_bwd) {sorted(set(per_iter))} over {len(per_iter)} '
+          f'iterations; the two runs {launches} with the {VAL_IMAGES} '
+          f'validated images (expected {want}) {"ok" if good else "FAIL"}')
+    ok = ok and good
+    # (b) and (g)
+    with open(f'{work}/train.log.json') as f:
+        lines = [json.loads(line) for line in f]
+    losses = [v for e in history + history_resumed if e['mode'] == 'train'
+              for k, v in e.items() if 'loss' in k]
+    val = [e for e in lines if e['mode'] == 'val']
+    good = all(np.isfinite(losses)) and len(losses) > 0 \
+        and [e for e in lines if e['mode'] == 'train'] == [
+            e for e in history if e['mode'] == 'train'] \
+        and len(lines) == TRAIN_ITERS + 1
+    print(f'train run (b) {len(losses)} logged losses finite, last loss '
+          f'{[e for e in history if e["mode"] == "train"][-1]["loss"]:.4f}; '
+          f'train.log.json parses, {len(lines)} lines '
+          f'{"ok" if good else "FAIL"}')
+    ok = ok and good
+    good = len(val) == 1 and val[0]['epoch'] == 2 and all(
+        k in val[0] for k in STATS)
+    print(f'train run (g) validation line {val} {"ok" if good else "FAIL"}')
+    ok = ok and good
+    # (c)
+    ckpts = {}
+    for path in (f'{work}/epoch_1.pth', f'{work}/epoch_2.pth',
+                 f'{resumed}/epoch_2.pth'):
+        state, meta, opt_state, sched_state = load_checkpoint(path)
+        ckpts[path] = state
+        good = opt_state is not None and sched_state is not None \
+            and len(opt_state['state']) > 150 \
+            and sched_state['last_epoch'] == meta['iter']
+        print(f'train run (c) {path}: epoch {meta["epoch"]}, iteration '
+              f'{meta["iter"]}, {len(state)} tensors, momentum of '
+              f'{len(opt_state["state"])}, scheduler at '
+              f'{sched_state["last_epoch"]} {"ok" if good else "FAIL"}')
+        ok = ok and good
+    good = os.readlink(f'{work}/latest.pth') == 'epoch_2.pth'
+    print(f'train run (c) latest.pth -> {os.readlink(f"{work}/latest.pth")} '
+          f'{"ok" if good else "FAIL"}')
+    ok = ok and good
+    size_mb = os.path.getsize(f'{work}/epoch_2.pth') / 2 ** 20
+    # (d)
+    from arfe_tpu_torch.config import Config
+    frozen = frozen_prefixes_from_cfg(Config.fromfile(PORT_CFG).model)
+    ok = _moved_check(rerun, ckpts[f'{work}/epoch_1.pth'],
+                      ckpts[f'{resumed}/epoch_2.pth'], frozen) and ok
+    # (e)
+    epoch2 = run.iters[TRAIN_ITERS // 2:]
+    same_batches = [(a['images'], a['flips']) for a in epoch2] == [
+        (b['images'], b['flips']) for b in rerun.iters]
+    same_lr = [a['lr'] for a in epoch2] == [b['lr'] for b in rerun.iters]
+    first, again = epoch2[0]['logs'], rerun.iters[0]['logs']
+    bit_equal = all(torch.equal(first[k], again[k]) for k in first)
+    rel = max(abs(float(first[k]) - float(again[k]))
+              / max(abs(float(first[k])), 1e-12) for k in first)
+    good = same_batches and same_lr and rel <= 1e-5
+    print(f'train run (e) resumed epoch 2 against the uninterrupted run: '
+          f'images and flips batch by batch {same_batches} '
+          f'({[b["images"] + b["flips"] for b in rerun.iters]}), LRs '
+          f'{same_lr} ({[b["lr"] for b in rerun.iters]}); first iteration\'s '
+          f'losses bit for bit {bit_equal}, largest relative difference '
+          f'{rel:.3e} (tol 1e-5) {"ok" if good else "FAIL"}')
+    ok = ok and good
+    # (f)
+    dumped = f'{work}/{os.path.basename(PORT_CFG)}'
+    metrics = test_cli.main([dumped, f'{work}/latest.pth', '--eval', 'bbox'])
+    good = all(k in metrics and np.isfinite(metrics[k]) for k in STATS)
+    print(f'train run (f) test CLI on latest.pth: '
+          + ', '.join(f'{k} {metrics.get(k, float("nan")):.4f}'
+                      for k in STATS) + f' {"ok" if good else "FAIL"}')
+    ok = ok and good
+    # the CPU's plain path at CPU_SCALE on four of the images, against the
+    # card in f32 without TF32 (as phase 2 leaves it). After a few
+    # iterations from random weights the background takes nearly every RoI
+    # and no score passes the 0.05 threshold: the comparison keeps every
+    # score (the config's copy with score_thr=0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    synthetic.write_annotations(f'{TRAIN_ROOT}/ann.json', images[:4])
+    compare = f'{TRAIN_ROOT}/compare_cfg.py'
+    with open(compare, 'w') as f:
+        f.write(f"_base_ = ['{os.path.abspath(dumped)}']\n"
+                'test_cfg = dict(rcnn=dict(score_thr=0.0))\n')
+    model = init_detector(compare, f'{work}/latest.pth')
+    good = _spread_classifier(model, _eval_config(
+        CPU_SCALE, workers=0, root=TRAIN_ROOT, path=compare))
+    ok = good and eval_reference_check(model, images[:4], root=TRAIN_ROOT,
+                                       path=compare, match=True) and ok
+    del model
+    torch.cuda.empty_cache()
+    # the numbers
+    its, waits, shares = _train_run_timing(run)
+    med = its[len(its) // 2]
+    wall_ms, busy_ms, idle = rerun.idle_share()
+    print(f'train run bs2 bf16 at (1333, 800), 2 loader workers '
+          f'({name_limit}): {med:.4f} s per iteration, median of '
+          f'{len(its)} ({its[0]:.4f}-{its[-1]:.4f}); of it waiting before '
+          f'the step (the loader, the copy to the card, the log) median '
+          f'{waits[len(waits) // 2]:.4f} s ({waits[0]:.4f}-{waits[-1]:.4f}),'
+          f' a share of {shares[len(shares) // 2]:.3f} '
+          f'({shares[0]:.3f}-{shares[-1]:.3f}); {2 / med:.2f} images '
+          f'trained per second; under the profiler (resumed run, iterations'
+          f' 2-3) {wall_ms:.2f} ms per iteration, device busy '
+          f'{busy_ms:.2f} ms, idle share {idle:.3f}')
+    print(f'train run checkpoints: save {[round(s, 3) for s in run.saves]} '
+          f's, load (resume) {[round(s, 3) for s in rerun.loads]} s, '
+          f'{size_mb:.1f} MiB each')
+    row = {'train_run_s_per_iter': med, 'train_run_loader_share':
+           shares[len(shares) // 2], 'train_run_idle_share': idle,
+           'train_run_ckpt_save_s': max(run.saves),
+           'train_run_ckpt_mib': size_mb}
+    return ok, launches, row
 
 
 PHASE_SECONDS = {}
@@ -1445,6 +1843,10 @@ def main():
         ok_eval, launches_eval, eval_rows = evaluate_arrff()
     rows[0].update(eval_rows[0])
     rows[1].update(eval_rows[1])
+    with phase('arrff: train run'):
+        ok_train_run, launches_train_run, train_run_row = train_run_arrff(
+            name_limit)
+    rows[0].update(train_run_row)
     for row in rows:
         row['launches'] = launches[row['name']]
         row['launches_serve'] = launches_serve.get(row['name'], 0)
@@ -1453,11 +1855,13 @@ def main():
             row[f'launches_{name}_serve'] = serve_runs.get(row['name'], 0)
             row[f'launches_{name}_train'] = train_runs[row['name']]
         row['launches_arrff_eval'] = launches_eval[row['name']]
+        row['launches_arrff_trainrun'] = launches_train_run[row['name']]
     failed = [k for k, v in (('kernels', ok_kernels), ('serve', ok_serve),
                              ('reference', ok_ref), ('train', ok_train),
                              ('kernel C on a step', ok_step_rois),
                              ('train reference', ok_train_ref),
-                             ('arrff evaluate', ok_eval)) if not v]
+                             ('arrff evaluate', ok_eval),
+                             ('arrff train run', ok_train_run)) if not v]
     failed += [f'{name} {k}' for name, r in (('arrff', arrff), ('fac', fac))
                for k, v in r[0].items() if not v]
     print(f'phases: {len(PHASE_SECONDS)}, total {time.time() - t0:.1f} s')

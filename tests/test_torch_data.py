@@ -251,7 +251,7 @@ def test_checkpoint_loads_the_converted_tree(checkpoint):
     with open(path, 'rb') as f:
         optimizer = pickle.load(f)['optimizer']
     assert type(optimizer[0]).__module__.startswith('optax')
-    state, meta = load_checkpoint(path)
+    state, meta, _, _ = load_checkpoint(path)
     want = params_to_state_dict(params)
     assert sorted(state) == sorted(want)
     for k in want:
@@ -265,7 +265,7 @@ _NO_JAX = '''
 import sys
 sys.modules['jax'] = sys.modules['optax'] = None   # importing them raises
 from arfe_tpu_torch.utils import load_checkpoint
-state, meta = load_checkpoint(sys.argv[1])
+state, meta, _, _ = load_checkpoint(sys.argv[1])
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'arfe_tpu'))
 print(sorted(state), meta['epoch'], bad)

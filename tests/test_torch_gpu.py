@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, their
-gradients through the autograd Functions, and the tiny flagship's inference
-and training step on the card against the CPU.
+gradients through the autograd Functions, the tiny flagship's inference
+and training step on the card against the CPU, and the training run's loop
+and checkpoints on the card.
 
 Marked ``gpu``; every test skips where there is no CUDA device. This file
 imports no JAX, so it also runs where JAX is not installed:
@@ -420,3 +421,63 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert [n - c for n, c in zip(
         (fa.launches, ra.launches, ra.bwd_launches), counts)] == [1, 1, 1]
     assert r['ok'], r
+
+
+def test_train_detector_launches_each_kernel_once_per_iteration(cuda,
+                                                                tmp_path):
+    """bf16 iterations of ``train_detector`` (the e2e smoke's tiny AR-FPN +
+    AR-RFF config, one epoch of 4 iterations): kernels A, B and C launch
+    once per iteration; the losses are finite."""
+    from arfe_tpu_torch.apis import train_detector
+    from arfe_tpu_torch.data import build_dataset
+    from arfe_tpu_torch.layers import init_weights
+    from arfe_tpu_torch.models import build_detector
+    from arfe_tpu_torch.tools import e2e_smoke
+    cfg = Config.fromfile(e2e_smoke.write_set(str(tmp_path), 1))
+    cfg.work_dir = str(tmp_path / 'work')
+    d = cfg.todict()
+    model = build_detector(d['model'], train_cfg=d['train_cfg'],
+                           test_cfg=d['test_cfg'])
+    init_weights(model, torch.Generator().manual_seed(0))
+    counts = (fa.launches, ra.launches, ra.bwd_launches)
+    history = train_detector(model, build_dataset(d['data']['train']), cfg,
+                             device=cuda, dtype=torch.bfloat16)
+    assert len(history) == 4
+    assert all(torch.isfinite(torch.tensor(e['loss'])) for e in history)
+    assert [n - c for n, c in zip(
+        (fa.launches, ra.launches, ra.bwd_launches), counts)] == [4, 4, 4]
+
+
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """A ``.pth`` saved from the card (weights, SGD momentum, scheduler)
+    loads on the CPU, and one saved from the CPU loads on the card, equal."""
+    from arfe_tpu_torch.train import build_lr_schedule, build_optimizer
+    from arfe_tpu_torch.utils import load_checkpoint, save_checkpoint
+    cfg = _tiny_cfg()
+    for src, dst in ((cuda, 'cpu'), ('cpu', cuda)):
+        model = init_detector(cfg, device=src)
+        opt, sched = build_optimizer(
+            dict(type='SGD', lr=0.02, momentum=0.9), build_lr_schedule(
+                dict(policy='step', step=[1]), 0.02, 10), model)
+        for p in model.parameters():
+            p.grad = torch.ones_like(p)
+        opt.step()
+        sched.step()
+        path = save_checkpoint(str(tmp_path / f'{src}.pth'), model, opt,
+                               sched, dict(epoch=1))
+        other = init_detector(cfg, path, device=dst)
+        for k, v in model.state_dict().items():
+            assert torch.equal(other.state_dict()[k].cpu(), v.cpu()), k
+        opt2, sched2 = build_optimizer(
+            dict(type='SGD', lr=0.02, momentum=0.9), build_lr_schedule(
+                dict(policy='step', step=[1]), 0.02, 10), other)
+        _, meta, opt_state, sched_state = load_checkpoint(path)
+        opt2.load_state_dict(opt_state)
+        sched2.load_state_dict(sched_state)
+        assert meta['epoch'] == 1 and sched2.last_epoch == 1
+        for p, q in zip(opt.param_groups[0]['params'],
+                        opt2.param_groups[0]['params']):
+            buf = opt2.state[q]['momentum_buffer']
+            assert buf.device == q.device
+            assert torch.equal(buf.cpu(), opt.state[p][
+                'momentum_buffer'].cpu())

@@ -1,7 +1,7 @@
 """The port stands alone: importing any of its modules (the data and
-evaluation path and the ``test`` CLI among them), or ``chip_smoke``, loads no
-JAX, no optax and nothing of the JAX package; its entry point defaults to the
-card."""
+evaluation path, the training run, and the ``test``, ``train`` and
+``e2e_smoke`` CLIs among them), or ``chip_smoke``, loads no JAX, no optax and
+nothing of the JAX package; its entry point defaults to the card."""
 import os
 import subprocess
 import sys
@@ -33,7 +33,13 @@ missing = [m for m in ('arfe_tpu_torch.train.optimizer',
                        'arfe_tpu_torch.core.evaluation.class_names',
                        'arfe_tpu_torch.utils.checkpoint',
                        'arfe_tpu_torch.apis.test',
-                       'arfe_tpu_torch.tools.test')
+                       'arfe_tpu_torch.tools.test',
+                       'arfe_tpu_torch.apis.train',
+                       'arfe_tpu_torch.tools.train',
+                       'arfe_tpu_torch.tools.e2e_smoke',
+                       'arfe_tpu_torch.utils.logger',
+                       'arfe_tpu_torch.utils.collect_env',
+                       'arfe_tpu_torch.utils.pretrained')
            if m not in sys.modules]
 print('modules:', len(sys.modules), 'forbidden:', bad, 'missing:', missing)
 sys.exit(1 if bad or missing else 0)
