@@ -6,15 +6,18 @@ mode on its device, with the config at ``.cfg`` and the class names at
 ``.CLASSES``: a PyTorch module already bundles its parameters, which the JAX
 package's ``Detector`` holds beside a stateless model. Serve it with
 ``simple_test`` on preprocessed NHWC images, or with
-:func:`inference_detector` on an image file or a BGR array.
+:func:`inference_detector` on an image file or a BGR array; a Mask R-CNN's
+masks are pasted into the original image on the host.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import Config
 from ..core.bbox import bbox2result
 from ..core.evaluation import get_classes
+from ..core.mask.mask_target import paste_masks_np
 from ..data.builder import collate_test
 from ..data.pipelines import Compose
 from ..layers import init_weights
@@ -81,13 +84,30 @@ def num_classes(model):
     return model.roi_head.bbox_head.num_classes
 
 
-def detections_to_results(dets, labels, valid, n_classes):
+def detections_to_results(out, n_classes, ori_shapes=None):
     """``simple_test``'s outputs of a batch -> per image, ``n_classes``
-    float32 arrays of shape (k, 5) [x1, y1, x2, y2, score]."""
+    float32 arrays of shape (k, 5) [x1, y1, x2, y2, score]; for a mask
+    model (mask logits in ``out``) per image the pair ``(bbox, segm)``,
+    ``segm`` holding per class the (H, W) uint8 masks of its detections,
+    in their order: each detection's sigmoid mask pasted into its image's
+    original (H, W) of ``ori_shapes`` and thresholded at 0.5."""
     dets, labels, valid = (t.float().cpu().numpy() if t.is_floating_point()
-                           else t.cpu().numpy() for t in (dets, labels, valid))
+                           else t.cpu().numpy() for t in out[:3])
     dets[~valid] = -1.0
-    return [bbox2result(d, lab, n_classes) for d, lab in zip(dets, labels)]
+    bboxes = [bbox2result(d, lab, n_classes) for d, lab in zip(dets, labels)]
+    if len(out) == 3:
+        return bboxes
+    logits = out[3].float().cpu().numpy()
+    probs = 1.0 / (1.0 + np.exp(-logits))   # the JAX package's sigmoid
+    results = []
+    for d, lab, prob, bbox, shape in zip(dets, labels, probs, bboxes,
+                                         ori_shapes):
+        keep = d[:, 4] > -1
+        pasted = paste_masks_np(prob[keep], d[keep], *shape[:2])
+        lab = lab[keep]
+        results.append((bbox, [list(pasted[lab == c])
+                               for c in range(n_classes)]))
+    return results
 
 
 def batch_to_device(batch, device, dtype=torch.float32):
@@ -107,11 +127,14 @@ def inference_detector(model, img, dtype=torch.float32):
         dtype: the image's dtype on the model's device (f32 or bf16).
     Returns:
         ``num_classes`` float32 arrays of shape (k, 5) [x1, y1, x2, y2,
-        score], in the original image's coordinates. Masks come with Mask
-        R-CNN (ROADMAP §1).
+        score], in the original image's coordinates; for a mask model the
+        pair ``(bbox, segm)``, ``segm`` holding per class the (H, W) uint8
+        masks of its detections in the original image.
     """
     batch = collate_test([build_test_pipeline(model.cfg)(dict(img=img))])
     device = next(model.parameters()).device
     out = model.simple_test(*batch_to_device(batch, device, dtype),
                             rescale=True)
-    return detections_to_results(*out, num_classes(model))[0]
+    return detections_to_results(
+        out, num_classes(model),
+        [m['ori_shape'] for m in batch['img_metas']])[0]

@@ -1,9 +1,8 @@
 """COCO-style detection evaluation (numpy).
 
 The port's own copy of ``arfe_tpu/core/evaluation/coco_eval.py`` (the port
-imports nothing of the JAX package), without the ``segm`` IoU, which comes
-with Mask R-CNN (ROADMAP §1). It re-implements COCOeval's
-bbox/proposal protocol — the metric definition the
+imports nothing of the JAX package). It re-implements COCOeval's
+bbox/segm/proposal protocol — the metric definition the
 reference relies on (ref: mmdet/datasets/coco.py:320-430 -> pycocotools
 COCOeval): greedy per-image per-category matching at 10 IoU thresholds,
 crowd/ignore handling, 101-point interpolated precision over
@@ -12,6 +11,8 @@ crowd/ignore handling, 101-point interpolated precision over
 from __future__ import annotations
 
 import numpy as np
+
+from ..mask.rle import ann_to_mask, mask_iou
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
@@ -49,15 +50,14 @@ class COCOEvaluator:
 
     Args:
         coco_gt: ground-truth COCO object.
-        iou_type: 'bbox' (or 'proposal' via use_cats=False).
+        iou_type: 'bbox', 'segm' (the masks' IoU: each annotation's
+            segmentation rasterised at its image's size, ``core.mask.
+            ann_to_mask``) or 'proposal' (bbox without categories).
     """
 
     def __init__(self, coco_gt, iou_type='bbox', use_cats=True,
                  max_dets=MAX_DETS, area_rngs=None, iou_thrs=None):
-        if iou_type == 'segm':
-            raise NotImplementedError('COCOEvaluator: the segm IoU comes '
-                                      'with Mask R-CNN')
-        if iou_type not in ('bbox', 'proposal'):
+        if iou_type not in ('bbox', 'segm', 'proposal'):
             raise ValueError(f'COCOEvaluator: iou_type {iou_type!r}')
         self.iou_type = iou_type
         self.iou_thrs = np.asarray(iou_thrs) if iou_thrs is not None \
@@ -83,13 +83,17 @@ class COCOEvaluator:
                 dts.setdefault(key, []).append(ann)
         return gts, dts
 
-    @staticmethod
-    def _ann_ious(dt_anns, gt_anns, iscrowd):
-        d_boxes = np.array([d['bbox'] for d in dt_anns]).reshape(-1, 4)
-        g_boxes = np.array([g['bbox'] for g in gt_anns]).reshape(-1, 4)
-        return _iou_xywh(d_boxes, g_boxes, iscrowd)
+    def _ann_ious(self, dt_anns, gt_anns, iid, iscrowd):
+        if self.iou_type != 'segm':
+            d_boxes = np.array([d['bbox'] for d in dt_anns]).reshape(-1, 4)
+            g_boxes = np.array([g['bbox'] for g in gt_anns]).reshape(-1, 4)
+            return _iou_xywh(d_boxes, g_boxes, iscrowd)
+        img = self.coco_gt.imgs[iid]
+        h, w = img['height'], img['width']
+        return mask_iou([ann_to_mask(d, h, w) for d in dt_anns],
+                        [ann_to_mask(g, h, w) for g in gt_anns], iscrowd)
 
-    def _evaluate_img(self, gt_anns, dt_anns, area_rng, max_det):
+    def _evaluate_img(self, gt_anns, dt_anns, area_rng, max_det, iid):
         """Greedy matching for one (img, cat) — pycocotools evaluateImg."""
         gt_ignore = np.array([
             bool(g.get('ignore', 0)) or bool(g.get('iscrowd', 0))
@@ -105,7 +109,7 @@ class COCOEvaluator:
         d_order = np.argsort(-scores, kind='mergesort')[:max_det]
         dt_anns = [dt_anns[i] for i in d_order]
 
-        ious = self._ann_ious(dt_anns, gt_anns, iscrowd)
+        ious = self._ann_ious(dt_anns, gt_anns, iid, iscrowd)
 
         nd, ng = len(dt_anns), len(gt_anns)
         t = len(self.iou_thrs)
@@ -168,7 +172,7 @@ class COCOEvaluator:
                     if not g and not d:
                         continue
                     evals.append(
-                        self._evaluate_img(g, d, arng, max_det_top))
+                        self._evaluate_img(g, d, arng, max_det_top, iid))
                 if not evals:
                     continue
                 for mi, max_det in enumerate(self.max_dets):

@@ -19,10 +19,12 @@
 // samples, 16 reads at sn = 2, which L1 and L2 serve: a RoI spans 14-28
 // pixels of its level per side, so its corner reads sum to a few hundred MB
 // of L2-to-SM traffic at R = 2000. The kernel is held to that traffic and to
-// its instruction count.
+// its instruction count. Mask R-CNN's mask extractor takes 14 x 14 bins
+// over few RoIs (100 a bs1 request, 10.0 MB of output at C = 256 in bf16):
+// there the launch leaves most SMs idle and the byte bound is ~0.004 ms.
 //
-// Design: one block per RoI. The block first computes its 2 * 7 * sn
-// per-axis sample parameters (corner rows / columns, weights, validity) into
+// Design: one block per RoI. The block first computes its (out_h + out_w) *
+// sn per-axis sample parameters (corner rows / columns, weights, validity) into
 // shared memory, once, with the code that the gradient kernel
 // (roi_align_bwd.cu) shares (roi_align_common.cuh). Each thread then owns 8
 // contiguous channels (16 bytes of bf16, two float4 of f32) for the whole
@@ -35,7 +37,8 @@
 // level (validity 0) take weight 0: their clamped corners are valid
 // addresses, and 0 * f adds nothing, as in the plain version's weights. The
 // block has channels / 8 x P threads, P bins at a time, with P chosen so
-// the passes over the 7 x 7 bins are even (224 threads at C = 256).
+// the passes over the bins are even (224 threads at C = 256 over 7 x 7
+// bins, 256 over 14 x 14).
 // Accumulation is f32 in the plain version's order (corner 00, 01, 10, 11
 // of a sample, then the sample into the bin's sum, samples row by row),
 // each product and sum rounded on its own (__fmul_rn, __fadd_rn: no

@@ -27,10 +27,11 @@
 // per-axis weights, each bin's corner weights summed over its samples (zero
 // for an invalid sample), the RoI adds Wy^T g[:, :, c] Wx / sn^2 to its
 // level. The rows it touches are the distinct corners i0, i1 of its
-// out_h * sn y samples, at most 2 * out_h * sn (28 for the flagship), and
-// likewise the columns: its footprint is at most 28 x 28 pixels, however
-// large the RoI, and fewer where samples share pixels (RoIs under 14 pixels
-// on their level, the small RoIs that level 0 takes).
+// out_h * sn y samples, at most 2 * out_h * sn (28 for the flagship's 7 x 7
+// bins, 56 for Mask R-CNN's 14 x 14), and likewise the columns: its
+// footprint is at most 28 x 28 (56 x 56) pixels, however large the RoI, and
+// fewer where samples share pixels (RoIs under 14 (28) pixels on their
+// level, the small RoIs that level 0 takes).
 // One block per RoI:
 //   1. the per-axis sample tables, from the forward's own code
 //      (roi_align_common.cuh), so that B and C place every sample bit for bit
@@ -57,7 +58,8 @@
 // agree with it to f32 rounding of the sum of the terms' magnitudes.
 // ptxas (-v, sm_90a): 80 registers, 8 bytes of spill (a 96-byte stack frame:
 // the level table indexed at run time); 3,480 B of dynamic shared memory at
-// 7 x 7 bins of 2 x 2 samples.
+// 7 x 7 bins of 2 x 2 samples, 10,088 B at 14 x 14 (112 corner candidates,
+// within the 256 threads).
 #include <cuda_runtime.h>
 #include <math.h>
 

@@ -21,6 +21,8 @@ from ..registry import DATASETS, build_from_cfg
 
 PAD_DIVISOR = 32
 MAX_GT = 100
+#: side of the fixed gt mask crops (``BitmapMasks.to_fixed_crops``)
+MASK_CROP_SIZE = 112
 
 
 def build_dataset(cfg, default_args=None):
@@ -146,11 +148,14 @@ def collate_test(samples):
     }
 
 
-def collate_train(samples, max_gt=MAX_GT):
+def collate_train(samples, max_gt=MAX_GT, mask_crop_size=MASK_CROP_SIZE):
     """:func:`collate_test`'s batch plus the ground truth padded to
     ``max_gt`` boxes (the first ``max_gt`` of an image that has more):
     ``gt_bboxes`` (B, G, 4) f32, ``gt_valid`` (B, G) bool and ``gt_labels``
-    (B, G) int64. Equals ``arfe_tpu.data.builder.collate_detection(samples,
+    (B, G) int64; where the samples have ``gt_masks``, also
+    ``gt_mask_crops`` (B, G, cs, cs) f32, each gt's mask cut to its box and
+    resized (``BitmapMasks.to_fixed_crops``), zero for padding. Equals
+    ``arfe_tpu.data.builder.collate_detection(samples,
     static_shapes=None)``, as tensors."""
     batch = collate_test(samples)
     b = len(samples)
@@ -165,6 +170,17 @@ def collate_train(samples, max_gt=MAX_GT):
     batch.update(gt_bboxes=torch.from_numpy(gt_bboxes),
                  gt_valid=torch.from_numpy(gt_valid),
                  gt_labels=torch.from_numpy(gt_labels))
+    if any('gt_masks' in s for s in samples):
+        crops = np.zeros((b, max_gt, mask_crop_size, mask_crop_size),
+                         np.float32)
+        for i, s in enumerate(samples):
+            masks = s.get('gt_masks')
+            n = min(len(masks) if masks is not None else 0,
+                    len(s['gt_bboxes']), max_gt)
+            if n:
+                crops[i, :n] = masks[list(range(n))].to_fixed_crops(
+                    s['gt_bboxes'][:n], mask_crop_size)
+        batch['gt_mask_crops'] = torch.from_numpy(crops)
     return batch
 
 

@@ -1,7 +1,8 @@
 """COCO dataset (counterpart of ``arfe_tpu/data/coco.py``; ref:
 mmdet/datasets/coco.py:19-430), on the port's own COCO API and
-``COCOEvaluator``. The ``bbox`` metric is ported; ``segm`` comes with Mask
-R-CNN (ROADMAP §1) and ``proposal`` with ``recall``.
+``COCOEvaluator``. The ``bbox`` and ``segm`` metrics are ported (masks as
+uncompressed RLE: pycocotools is not installed); ``proposal`` waits for
+``recall``.
 """
 from __future__ import annotations
 
@@ -10,11 +11,13 @@ import json
 import numpy as np
 
 from ..core.evaluation import COCOEvaluator
+from ..core.mask.rle import mask_to_rle
 from ..registry import DATASETS
 from .coco_api import COCO
 from .custom import CustomDataset
 
-BBOX_STATS = ('AP', 'AP50', 'AP75', 'APs', 'APm', 'APl')
+STATS = ('AP', 'AP50', 'AP75', 'APs', 'APm', 'APl')
+_EMPTY = {'images': [], 'annotations': [], 'categories': []}
 
 
 @DATASETS.register_module()
@@ -106,11 +109,14 @@ class CocoDataset(CustomDataset):
             seg_map=img_info['filename'].replace('jpg', 'png'))
 
     def _det2json(self, results):
-        """Per-class (k, 5) arrays of each image -> COCO json dicts
-        (ref: coco.py:182-227)."""
+        """Per-class (k, 5) arrays of each image (the first of a mask
+        model's ``(bbox, segm)`` pair) -> COCO json dicts (ref:
+        coco.py:182-227)."""
         json_results = []
         for idx, result in enumerate(results):
             img_id = self.img_ids[idx]
+            if isinstance(result, tuple):
+                result = result[0]
             for label, bboxes in enumerate(result):
                 for bbox in bboxes:
                     x1, y1, x2, y2, score = bbox[:5].tolist()
@@ -118,6 +124,26 @@ class CocoDataset(CustomDataset):
                         image_id=img_id,
                         bbox=[x1, y1, x2 - x1, y2 - y1],
                         score=float(score),
+                        category_id=self.cat_ids[label]))
+        return json_results
+
+    def _segm2json(self, results):
+        """``(bbox, segm)`` results -> COCO segm json dicts, each mask (a
+        binary array or an RLE) as uncompressed RLE with its detection's
+        score (ref: coco.py:229-267)."""
+        json_results = []
+        for idx, result in enumerate(results):
+            if not isinstance(result, tuple):
+                raise ValueError('segm metric needs (bbox, segm) results')
+            img_id = self.img_ids[idx]
+            det, seg = result
+            for label, bboxes in enumerate(det):
+                for bbox, rle in zip(bboxes, seg[label]):
+                    if not isinstance(rle, dict):
+                        rle = mask_to_rle(np.asarray(rle))
+                    json_results.append(dict(
+                        image_id=img_id, segmentation=rle,
+                        score=float(bbox[4]),
                         category_id=self.cat_ids[label]))
         return json_results
 
@@ -132,24 +158,28 @@ class CocoDataset(CustomDataset):
         return {'bbox': path}
 
     def evaluate(self, results, metric='bbox', iou_thrs=None):
-        """COCO protocol evaluation (ref: coco.py:320-430): the six bbox
-        stats ``bbox_mAP``, ``bbox_AP50`` ... ``bbox_APl``."""
+        """COCO protocol evaluation (ref: coco.py:320-430): for each of
+        ``bbox`` and ``segm`` asked for, its six stats ``{m}_mAP``,
+        ``{m}_AP50`` ... ``{m}_APl``. ``segm`` needs a mask model's
+        ``(bbox, segm)`` results."""
         metrics = metric if isinstance(metric, list) else [metric]
         for m in metrics:
-            if m == 'segm':
-                raise NotImplementedError(
-                    'CocoDataset.evaluate: segm comes with Mask R-CNN')
             if m in ('proposal', 'proposal_fast'):
                 raise NotImplementedError(
                     f'CocoDataset.evaluate: {m} waits for recall')
-            if m != 'bbox':
+            if m not in ('bbox', 'segm'):
                 raise KeyError(f'metric {m} is not supported')
-        json_results = self._det2json(results)
-        coco_dt = self.coco.loadRes(json_results) if json_results \
-            else COCO.from_dict({'images': [], 'annotations': [],
-                                 'categories': []})
-        ev = COCOEvaluator(self.coco, iou_type='bbox', iou_thrs=iou_thrs)
-        ev.img_ids = self.img_ids
-        stats = ev.evaluate(coco_dt)['stats']
-        return {('bbox_mAP' if k == 'AP' else f'bbox_{k}'): stats[k]
-                for k in BBOX_STATS}
+        out = {}
+        for m in ('bbox', 'segm'):
+            if m not in metrics:
+                continue
+            dets = self._det2json(results) if m == 'bbox' \
+                else self._segm2json(results)
+            coco_dt = self.coco.loadRes(dets) if dets \
+                else COCO.from_dict(_EMPTY)
+            ev = COCOEvaluator(self.coco, iou_type=m, iou_thrs=iou_thrs)
+            ev.img_ids = self.img_ids
+            stats = ev.evaluate(coco_dt)['stats']
+            out.update({(f'{m}_mAP' if k == 'AP' else f'{m}_{k}'): stats[k]
+                        for k in STATS})
+        return out

@@ -3,13 +3,14 @@ that the datasets and the evaluator use (index construction, id queries,
 loading), as the reference uses it (ref: mmdet/datasets/coco.py:33-96).
 
 The port's own copy of ``arfe_tpu/data/coco_api.py`` (the port imports
-nothing of the JAX package), without the mask results, which come with
-Mask R-CNN (ROADMAP §1).
+nothing of the JAX package).
 """
 from __future__ import annotations
 
 import json
 from collections import defaultdict
+
+from ..core.mask.rle import rle_area, rle_to_bbox
 
 
 class COCO:
@@ -112,7 +113,8 @@ class COCO:
 
     def loadRes(self, results):
         """Build a result COCO object from a list of detection dicts
-        (image_id, category_id, bbox [x,y,w,h], score)."""
+        (image_id, category_id, score, and bbox [x,y,w,h] or an
+        uncompressed-RLE segmentation, whose area and box are its own)."""
         if isinstance(results, str):
             with open(results) as f:
                 results = json.load(f)
@@ -123,8 +125,8 @@ class COCO:
             ann = dict(det)
             ann['id'] = i + 1
             if isinstance(ann.get('segmentation'), dict):
-                raise NotImplementedError(
-                    'loadRes: mask results come with Mask R-CNN')
+                ann.setdefault('area', rle_area(ann['segmentation']))
+                ann.setdefault('bbox', rle_to_bbox(ann['segmentation']))
             if 'bbox' in ann and 'area' not in ann:
                 x, y, w, h = ann['bbox']
                 ann['area'] = w * h

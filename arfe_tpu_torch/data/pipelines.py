@@ -3,9 +3,10 @@
 
 Transforms take and return mmdet-style ``results`` dicts, so the reference's
 pipeline configs load unchanged, and give the JAX package's arrays bit for
-bit: images are read and resized by ``image_io`` in place of OpenCV. The
-train and test pipelines of the box detectors are complete; masks and
-segmentation maps come with Mask R-CNN, and test-time augmentation
+bit: images are read and resized, and polygons rasterised, by ``image_io``
+in place of OpenCV. The train and test pipelines of the box detectors and of
+Mask R-CNN (instance masks as ``core.mask.BitmapMasks``) are complete;
+segmentation maps wait for HTC, and test-time augmentation
 (``MultiScaleFlipAug`` over several scales or with flips) is queued with
 ``aug_test``.
 """
@@ -15,6 +16,7 @@ import os.path as osp
 
 import numpy as np
 
+from ..core.mask.structures import BitmapMasks, PolygonMasks
 from ..registry import PIPELINES, build_from_cfg
 from .image_io import imread, imresize
 
@@ -90,21 +92,37 @@ class LoadImage:
 
 @PIPELINES.register_module()
 class LoadAnnotations:
-    """(ref: pipelines/loading.py:153-283): boxes (and ignored boxes) and
-    labels. Masks and segmentation maps come with Mask R-CNN."""
+    """(ref: pipelines/loading.py:153-283): boxes (and ignored boxes),
+    labels, and with ``with_mask`` the instance masks as ``BitmapMasks``
+    (polygons filled as ``cv2.fillPoly`` fills them, whatever
+    ``poly2mask`` says, as in ``arfe_tpu/data/pipelines.py:113-125``).
+    Segmentation maps (``with_seg``) wait for HTC's semantic head."""
 
     def __init__(self, with_bbox=True, with_label=True, with_mask=False,
                  with_seg=False, poly2mask=True):
+        if with_seg:
+            raise NotImplementedError(
+                'LoadAnnotations: segmentation maps (with_seg) wait for '
+                "HTC's semantic head, not ported (ROADMAP §1)")
         self.with_bbox = with_bbox
         self.with_label = with_label
         self.with_mask = with_mask
-        self.with_seg = with_seg
+
+    @staticmethod
+    def _load_masks(results):
+        h = results['img_info']['height']
+        w = results['img_info']['width']
+        raw = results['ann_info'].get('masks') or []
+        if raw and isinstance(raw[0], np.ndarray) and raw[0].ndim == 2:
+            return BitmapMasks(raw, h, w)
+        if any(isinstance(m, dict) for m in raw):
+            raise NotImplementedError(
+                'LoadAnnotations: RLE instance masks are not read (nor by '
+                'the JAX package); polygons and bitmaps are')
+        polys = [[np.asarray(p, np.float32) for p in (m or [])] for m in raw]
+        return PolygonMasks(polys, h, w).to_bitmap()
 
     def __call__(self, results):
-        if self.with_mask or self.with_seg:
-            raise NotImplementedError(
-                'LoadAnnotations: masks and segmentation maps come with Mask '
-                'R-CNN (ROADMAP §1)')
         ann = results['ann_info']
         if self.with_bbox:
             results['gt_bboxes'] = ann['bboxes'].copy()
@@ -115,6 +133,9 @@ class LoadAnnotations:
             results.setdefault('bbox_fields', []).append('gt_bboxes')
         if self.with_label:
             results['gt_labels'] = ann['labels'].copy()
+        if self.with_mask:
+            results['gt_masks'] = self._load_masks(results)
+            results.setdefault('mask_fields', []).append('gt_masks')
         return results
 
 
@@ -134,7 +155,8 @@ def _rescale_size(old_size, scale):
 @PIPELINES.register_module()
 class Resize:
     """(ref: pipelines/transforms.py:25-190): value/range multiscale and
-    keep_ratio; boxes in ``bbox_fields`` scaled and clipped."""
+    keep_ratio; boxes in ``bbox_fields`` scaled and clipped, masks in
+    ``mask_fields`` resized to the image (nearest neighbour)."""
 
     def __init__(self, img_scale=None, multiscale_mode='range',
                  ratio_range=None, keep_ratio=True):
@@ -170,9 +192,6 @@ class Resize:
     def __call__(self, results):
         if 'scale' not in results:
             self._random_scale(results)
-        if results.get('mask_fields'):
-            raise NotImplementedError('Resize: masks come with Mask R-CNN '
-                                      '(ROADMAP §1)')
         img = results['img']
         h, w = img.shape[:2]
         if self.keep_ratio:
@@ -193,12 +212,16 @@ class Resize:
             bboxes[:, 0::2] = np.clip(bboxes[:, 0::2], 0, new_w)
             bboxes[:, 1::2] = np.clip(bboxes[:, 1::2], 0, new_h)
             results[key] = bboxes
+        for key in results.get('mask_fields', []):
+            if results.get(key) is not None:
+                results[key] = results[key].resize((new_h, new_w))
         return results
 
 
 @PIPELINES.register_module()
 class RandomFlip:
-    """(ref: pipelines/transforms.py:192-260): image and ``bbox_fields``."""
+    """(ref: pipelines/transforms.py:192-260): image, ``bbox_fields`` and
+    ``mask_fields``."""
 
     def __init__(self, flip_ratio=None, direction='horizontal'):
         self.flip_ratio = flip_ratio
@@ -211,9 +234,6 @@ class RandomFlip:
         if 'flip_direction' not in results:
             results['flip_direction'] = self.direction
         if results['flip']:
-            if results.get('mask_fields'):
-                raise NotImplementedError('RandomFlip: masks come with Mask '
-                                          'R-CNN (ROADMAP §1)')
             horizontal = results['flip_direction'] == 'horizontal'
             results['img'] = np.flip(results['img'],
                                      axis=1 if horizontal else 0).copy()
@@ -227,6 +247,10 @@ class RandomFlip:
                     bboxes[:, 1::4] = h - results[key][:, 3::4]
                     bboxes[:, 3::4] = h - results[key][:, 1::4]
                 results[key] = bboxes
+            for key in results.get('mask_fields', []):
+                if results.get(key) is not None:
+                    results[key] = results[key].flip(
+                        results['flip_direction'])
         return results
 
 
@@ -282,7 +306,8 @@ class Pad:
 @PIPELINES.register_module()
 class DefaultFormatBundle:
     """(ref: pipelines/formating.py:101-140): the image contiguous f32 HWC,
-    the boxes f32, the labels int64; the loader's collate makes the
+    the boxes f32, the labels int64; ``gt_masks`` stay ``BitmapMasks``,
+    which the loader's collate cuts into fixed crops; the collate makes the
     tensors."""
 
     def __call__(self, results):

@@ -73,6 +73,31 @@ class Conv2d(nn.Module):
                         self.padding, self.dilation, self.groups)
 
 
+class ConvTranspose2d(nn.Module):
+    """Transposed conv with an IOHW ``weight`` (torch's layout; the JAX
+    package stores the spatially flipped HWIO kernel of the equivalent
+    convolution, ``convert.jax2torch`` turns one into the other) and a
+    ``bias``, initialised as the JAX module: uniform within sqrt(1 /
+    (in_channels * k * k)), bias 0."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=2, stride=2):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.weight = nn.Parameter(
+            torch.empty(in_channels, out_channels, kh, kw))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def reset(self, gen):
+        i, _, kh, kw = self.weight.shape
+        _uniform(self.weight, math.sqrt(1.0 / (i * kh * kw)), gen)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight.to(x.dtype),
+                                  self.bias.to(x.dtype), self.stride)
+
+
 class Linear(nn.Module):
     """Dense layer with an (out, in) ``weight``."""
 
@@ -169,7 +194,7 @@ def init_weights(module, gen):
     """Randomly initialise every layer of ``module`` from ``gen``, then let
     composite modules adjust (e.g. NonLocal2D zeroes its output conv)."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, Linear, BatchNorm)):
+        if isinstance(m, (Conv2d, ConvTranspose2d, Linear, BatchNorm)):
             m.reset(gen)
     for m in module.modules():
         if hasattr(m, 'after_init'):

@@ -1,3 +1,3 @@
-from .two_stage import FasterRCNN, TwoStageDetector
+from .two_stage import FasterRCNN, MaskRCNN, TwoStageDetector
 
-__all__ = ['FasterRCNN', 'TwoStageDetector']
+__all__ = ['FasterRCNN', 'MaskRCNN', 'TwoStageDetector']

@@ -1,5 +1,6 @@
-"""Two-stage detector: inference and training losses (counterpart of
-``arfe_tpu/models/detectors/two_stage.py:11-121,155-157``)."""
+"""Two-stage detectors: inference and training losses (counterpart of
+``arfe_tpu/models/detectors/two_stage.py:11-121,155-161``): Faster R-CNN,
+and Mask R-CNN, whose RoI head has a mask branch."""
 from __future__ import annotations
 
 import torch
@@ -34,7 +35,7 @@ class TwoStageDetector(nn.Module):
         return x if self.neck is None else self.neck(x)
 
     def forward_train(self, img, img_shapes, gt_bboxes, gt_valid, gt_labels,
-                      gen):
+                      gen, gt_mask_crops=None):
         """Training losses of a batch.
 
         Args:
@@ -43,9 +44,11 @@ class TwoStageDetector(nn.Module):
             gt_bboxes: (B, G, 4) f32 padded; gt_valid (B, G) bool;
                 gt_labels (B, G) int.
             gen: ``torch.Generator`` on the model's device, for sampling.
+            gt_mask_crops: (B, G, cs, cs) f32 gt mask crops, for a mask
+                head (``data.builder.collate_train``).
         Returns:
             dict of ``loss_rpn_cls``, ``loss_rpn_bbox``, ``loss_cls``,
-            ``acc`` and ``loss_bbox``.
+            ``acc`` and ``loss_bbox``, and ``loss_mask`` with a mask head.
         """
         x = self.extract_feat(img)
         shared = [self.rpn_head.shared_single(f) for f in x]
@@ -61,7 +64,8 @@ class TwoStageDetector(nn.Module):
             or self.test_cfg.get('rpn'),
             shared=[s.detach() for s in shared])
         losses.update(self.roi_head.forward_train(
-            x, props, prop_valid, gt_bboxes, gt_valid, gt_labels, gen))
+            x, props, prop_valid, gt_bboxes, gt_valid, gt_labels, gen,
+            gt_mask_crops=gt_mask_crops))
         return losses
 
     @torch.inference_mode()
@@ -74,7 +78,8 @@ class TwoStageDetector(nn.Module):
             scale_factors: (B, 4) f32 resize factors (used with ``rescale``).
         Returns:
             dets (B, max_per_img, 5) padded with [0, 0, 0, 0, -1], labels
-            (B, max_per_img) int32, valid (B, max_per_img) bool.
+            (B, max_per_img) int32, valid (B, max_per_img) bool; with a
+            mask head also each slot's mask logits (B, max_per_img, 28, 28).
         """
         x = self.extract_feat(img)
         props, prop_valid = self.rpn_head.get_proposals(x, img_shapes)
@@ -85,3 +90,8 @@ class TwoStageDetector(nn.Module):
 @DETECTORS.register_module()
 class FasterRCNN(TwoStageDetector):
     """ref: mmdet/models/detectors/faster_rcnn.py"""
+
+
+@DETECTORS.register_module()
+class MaskRCNN(TwoStageDetector):
+    """ref: mmdet/models/detectors/mask_rcnn.py"""

@@ -1,7 +1,6 @@
-"""Softmax and sigmoid cross entropy, and ARFE's ``use_dis`` and
-``use_multi_cls`` variants (counterpart of
-``arfe_tpu/models/losses/cross_entropy_loss.py:23-55,68-134``). The mask loss
-is not ported yet.
+"""Softmax and sigmoid cross entropy, the mask form (``use_mask``), and
+ARFE's ``use_dis`` and ``use_multi_cls`` variants (counterpart of
+``arfe_tpu/models/losses/cross_entropy_loss.py:23-134``).
 
 Maxima and minima are ``amax`` / ``amin``, whose gradient splits a tie
 evenly, as JAX's does."""
@@ -38,10 +37,30 @@ def binary_cross_entropy(pred, label, weight=None, reduction='mean',
             label = (label[..., None] - 1 == classes) & (label[..., None] >= 1)
             if weight is not None and weight.dim() != pred.dim():
                 weight = weight[..., None].expand(pred.shape)
-    label = label.to(pred.dtype)
-    loss = torch.relu(pred) - pred * label \
-        + torch.log1p(torch.exp(-torch.abs(pred)))
+    loss = binary_cross_entropy_with_logits(pred, label.to(pred.dtype))
     return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def binary_cross_entropy_with_logits(pred, target):
+    """Elementwise ``max(x, 0) - x t + log1p(exp(-|x|))``, as the JAX
+    package writes it."""
+    return torch.relu(pred) - pred * target \
+        + torch.log1p(torch.exp(-torch.abs(pred)))
+
+
+def mask_cross_entropy(pred, target, label, reduction='mean',
+                       avg_factor=None):
+    """Sigmoid cross entropy of each RoI's mask on its class's channel,
+    averaged over every RoI and pixel (ref: cross_entropy_loss.py:135-142).
+
+    Args:
+        pred: (R, h, w, C) logits; target: (R, h, w); label: (R,).
+    """
+    if reduction != 'mean' or avg_factor is not None:
+        raise ValueError('mask_cross_entropy: only the mean is defined')
+    index = label.long()[:, None, None, None].expand(-1, *pred.shape[1:3], 1)
+    sel = torch.gather(pred, -1, index)[..., 0]
+    return binary_cross_entropy_with_logits(sel, target).mean()
 
 
 def distribution_loss(pred, label, weight=None, reduction='mean',
@@ -85,14 +104,15 @@ def multi_classes_loss(pred, presence, weight=None, reduction='mean',
 class CrossEntropyLoss:
     def __init__(self, use_sigmoid=False, use_mask=False, use_dis=False,
                  use_multi_cls=False, reduction='mean', loss_weight=1.0):
-        if use_mask:
-            raise NotImplementedError('CrossEntropyLoss: the mask form is '
-                                      'not ported')
+        if use_sigmoid and use_mask:
+            raise ValueError('CrossEntropyLoss: use_sigmoid or use_mask')
         self.use_sigmoid = use_sigmoid
         self.reduction = reduction
         self.loss_weight = loss_weight
         if use_sigmoid:
             self.cls_criterion = binary_cross_entropy
+        elif use_mask:
+            self.cls_criterion = mask_cross_entropy
         elif use_dis:
             self.cls_criterion = distribution_loss
         elif use_multi_cls:

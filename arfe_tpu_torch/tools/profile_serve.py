@@ -4,7 +4,9 @@
 
 Serves a detector (by default the flagship Faster R-CNN R50 + AR-FPN,
 ``configs/_base_/models/faster_rcnn_r50_arfpn.py``; the AR-RFF flagship is
-``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``) at 800x1344 in bf16
+``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``, Mask R-CNN
+``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``, whose RoI head stage holds
+its mask branch) at 800x1344 in bf16
 with seeded random weights (as ``chip_smoke.py`` does) and prints, over five
 requests after two warm-up requests:
 

@@ -4,10 +4,12 @@
         [--config PATH]
 
 Trains a detector (by default the flagship Faster R-CNN R50 + AR-FPN; the
-AR-RFF flagship is ``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``)
+AR-RFF flagship is ``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``,
+Mask R-CNN ``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``)
 at 800x1344 in bf16 (or f32: ``--dtype f32``) with seeded random weights,
-the bench's synthetic batch (8 gt boxes of 30-80 px per image,
-``bench.py:170-185``) and its SGD schedule (``bench.py:163-168``), both
+the bench's synthetic batch (8 gt boxes of 30-80 px per image, and random
+28 x 28 gt mask crops for a mask head, ``bench.py:170-188``) and its SGD
+schedule (``bench.py:163-168``), both
 from ``arfe_tpu_torch.train.bench`` as in ``chip_smoke.py``, and prints,
 over five steps after two warm-up steps:
 
@@ -46,7 +48,15 @@ def main():
     gen = torch.Generator(device='cuda').manual_seed(0)
     b = args.batch
     batch = bench.synthetic_batch(b, dtype=torch.bfloat16
-                                  if args.dtype == 'bf16' else torch.float32)
+                                  if args.dtype == 'bf16' else torch.float32,
+                                  masks=getattr(model.roi_head, 'with_mask',
+                                                False))
+
+    def forward():
+        return parse_losses(model.forward_train(
+            batch['img'], batch['img_shape'], batch['gt_bboxes'],
+            batch['gt_valid'], batch['gt_labels'], gen,
+            gt_mask_crops=batch.get('gt_mask_crops')))
 
     def staged():
         """One step, stage by stage; returns each stage's wall ms."""
@@ -59,9 +69,7 @@ def main():
             times.append((time.perf_counter() - t0) * 1e3)
             return out
 
-        total, _ = timed(lambda: parse_losses(model.forward_train(
-            batch['img'], batch['img_shape'], batch['gt_bboxes'],
-            batch['gt_valid'], batch['gt_labels'], gen)))
+        total, _ = timed(forward)
         opt.zero_grad(set_to_none=True)
         timed(total.backward)
         timed(opt.step)
@@ -78,9 +86,7 @@ def main():
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            total, _ = parse_losses(model.forward_train(
-                batch['img'], batch['img_shape'], batch['gt_bboxes'],
-                batch['gt_valid'], batch['gt_labels'], gen))
+            total, _ = forward()
             opt.zero_grad(set_to_none=True)
             total.backward()
             opt.step()

@@ -1,7 +1,7 @@
 """Evaluate a detector on its config's test set (counterpart of
 ``tools/test.py:27-79``, one image a batch).
 
-    python -m arfe_tpu_torch.tools.test CONFIG [CHECKPOINT] [--eval bbox]
+    python -m arfe_tpu_torch.tools.test CONFIG [CHECKPOINT] [--eval bbox [segm]]
         [--out F.pkl] [--device cuda|cpu]
 
 The checkpoint is the JAX package's native ``.pkl`` or an mmdet-style
@@ -23,7 +23,7 @@ def parse_args(argv=None):
     parser.add_argument('checkpoint', nargs='?', default=None)
     parser.add_argument('--out', help='output result file (.pkl)')
     parser.add_argument('--eval', type=str, nargs='+',
-                        help='metrics: bbox')
+                        help="metrics: bbox, and segm for a mask model")
     parser.add_argument('--device', default='cuda',
                         help='cuda (default) or cpu')
     return parser.parse_args(argv)

@@ -5,7 +5,8 @@ the CPU.
 take their batch, their trainer and their card-against-CPU comparison from
 here:
 
-- :func:`synthetic_batch`: the bench's batch (``bench.py:170-185``);
+- :func:`synthetic_batch`: the bench's batch (``bench.py:170-188``), with
+  its random 28 x 28 gt mask crops for Mask R-CNN;
 - :func:`build_trainer`: the flagship with its ``train_cfg`` and the bench's
   SGD schedule (``bench.py:163-168``);
 - :func:`compare_with_cpu`: the losses and gradients of one f32 step of a
@@ -32,6 +33,8 @@ FLAGSHIP_CFG = os.path.join(_CONFIGS, '_base_', 'models',
 ARFE_CFGS = {name: os.path.join(_CONFIGS, 'arfe',
                                 f'faster_rcnn_r50_arfpn_{name}_1x_coco.py')
              for name in ('arrff', 'fac')}
+#: Mask R-CNN R50 + AR-FPN (config #5a)
+MASK_CFG = os.path.join(_CONFIGS, 'arfe', 'mask_rcnn_r50_arfpn_1x_coco.py')
 H, W = 800, 1344             # the bench's padded image (bench.py:28)
 IMG_SHAPE = (800.0, 1333.0)  # its content shape (bench.py:90)
 BATCH_KEYS = ('img', 'img_shape', 'gt_bboxes', 'gt_valid', 'gt_labels')
@@ -49,10 +52,11 @@ GRAD_RTOL = 5e-2
 
 
 def synthetic_batch(b, h=H, w=W, img_shape=IMG_SHAPE, dtype=torch.bfloat16,
-                    seed=0, g=16, device='cuda'):
-    """The bench's training batch (``bench.py:170-185``): 8 gt boxes of
+                    seed=0, g=16, device='cuda', masks=False):
+    """The bench's training batch (``bench.py:170-188``): 8 gt boxes of
     30-80 px per image, padded to ``g``, labels 0-79, random (h, w) images
-    whose content is ``img_shape``; drawn from a numpy seed."""
+    whose content is ``img_shape``, and with ``masks`` random binary 28 x 28
+    ``gt_mask_crops``; drawn from a numpy seed."""
     r = np.random.RandomState(seed)
     gt = np.zeros((b, g, 4), np.float32)
     valid = np.zeros((b, g), bool)
@@ -67,6 +71,9 @@ def synthetic_batch(b, h=H, w=W, img_shape=IMG_SHAPE, dtype=torch.bfloat16,
                  gt_bboxes=torch.from_numpy(gt),
                  gt_valid=torch.from_numpy(valid),
                  gt_labels=torch.from_numpy(labels))
+    if masks:
+        batch['gt_mask_crops'] = torch.from_numpy(
+            (r.rand(b, g, 28, 28) > 0.5).astype(np.float32))
     return {k: v.to(device) for k, v in batch.items()}
 
 
@@ -124,8 +131,10 @@ def loss_and_grads(model, batch, seed=5):
     _, h, w, _ = batch['img'].shape
     fix_priorities(model, batch['gt_bboxes'].shape[1], h, w, seed)
     model.zero_grad(set_to_none=True)
+    crops = batch.get('gt_mask_crops')
     total, logs = parse_losses(model.forward_train(
-        *[batch[k].to(dev) for k in BATCH_KEYS], None))
+        *[batch[k].to(dev) for k in BATCH_KEYS], None,
+        gt_mask_crops=None if crops is None else crops.to(dev)))
     total.backward()
     return ({k: float(v.detach()) for k, v in logs.items()},
             {k: p.grad.detach().cpu().clone()

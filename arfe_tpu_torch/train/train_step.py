@@ -39,8 +39,9 @@ def make_train_step(model, optimizer, scheduler=None, grad_clip=None):
     """``step(batch, gen) -> log_vars``.
 
     ``batch`` holds ``img`` (B, H, W, 3), ``img_shape`` (B, 2),
-    ``gt_bboxes`` (B, G, 4), ``gt_valid`` (B, G) and ``gt_labels`` (B, G)
-    on the model's device; ``gen`` is the ``torch.Generator`` of the
+    ``gt_bboxes`` (B, G, 4), ``gt_valid`` (B, G) and ``gt_labels`` (B, G),
+    and for a mask head ``gt_mask_crops`` (B, G, cs, cs), on the model's
+    device; ``gen`` is the ``torch.Generator`` of the
     samplers. ``grad_clip`` (``dict(max_norm, norm_type=2)``) clips the
     gradients between the backward and the update (``optimizer.
     build_grad_clip``). The log values are detached f32 scalars on the
@@ -51,7 +52,8 @@ def make_train_step(model, optimizer, scheduler=None, grad_clip=None):
     def step(batch, gen):
         losses = model.forward_train(
             batch['img'], batch['img_shape'], batch['gt_bboxes'],
-            batch['gt_valid'], batch['gt_labels'], gen)
+            batch['gt_valid'], batch['gt_labels'], gen,
+            gt_mask_crops=batch.get('gt_mask_crops'))
         total, log_vars = parse_losses(losses)
         optimizer.zero_grad(set_to_none=True)
         total.backward()

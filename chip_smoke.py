@@ -81,15 +81,45 @@
     validation wrote its line. Prints the seconds per iteration, the
     loader's share, images per second, the idle share under the profiler,
     and the checkpoints' save and load seconds and size.
+14. Serves Mask R-CNN + AR-FPN (config #5a,
+    ``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``) at full width: two bs1
+    and one bs2 request in bf16 and one bs1 in f32. Each request launches A
+    once and B exactly twice (the boxes' 7 x 7 bins, then the detections'
+    14 x 14: every detection slot, padding included) and gives finite mask
+    logits (B, 100, 28, 28); then the card against the CPU as in 4, the
+    matched detections' mask logits included.
+15. Holds kernel B at 14 x 14 against its plain version on the mask RoIs,
+    levels and features of the first bs1 and bs2 requests (R = 100, 200),
+    bf16 and f32, bit for bit, and times both beside the bound.
+16. Trains Mask R-CNN at full width, bs2: two bf16 steps and one f32 step
+    with the bench's random mask crops. Each step launches A once, B and C
+    twice; ``loss_mask`` is finite, the frozen stem and layer1 stay, every
+    ``mask_head`` tensor moves. Holds kernel C at 14 x 14 against its plain
+    version on the first step's mask cotangent and RoIs (R = 256), times
+    both, then a training step against the CPU as in 6 (``loss_mask`` and
+    the mask head's gradients among them).
+17. Trains Mask R-CNN through the train CLI (the port config
+    ``arfe_tpu_torch/configs/mask_rcnn_r50_arfpn_1x_coco.py``: one epoch of
+    4 iterations, bs2 bf16, on 8 PNGs of polygon instances under
+    ``build/mask_coco``, masks and their fixed crops through the train
+    pipeline and collate), then the test CLI on ``latest.pth`` with
+    ``--eval bbox segm``: A once, B and C twice per iteration; A once and B
+    twice per evaluated image; the twelve stats; the card's f32 bbox and
+    segm stats within 1e-3 of the CPU's plain path at (667, 400), ground
+    truth seeded from the CPU's detections and masks, every detection
+    matched one for one (phase 13's classifier spread, ``score_thr=0``).
+    Prints the host paste's time per image.
 
 Prints each phase's wall seconds and the total, one JSON line of kernel
 numbers (``launches`` counts the flagship's training run,
 ``launches_serve`` its serving run, ``launches_{arrff,fac}_{serve,train}``
 those of AR-RFF and "+fac", ``launches_arrff_eval`` the two timed
 evaluation runs, ``launches_arrff_trainrun`` the two training runs of
-phase 13 with its validation; the ``_arrff_r*`` keys are kernels B and C
-at AR-RFF's shapes, the ``_eval_*`` keys A and B on a real image's
-arguments, the ``train_run_*`` keys phase 13's numbers), then the
+phase 13 with its validation, ``launches_mask_{serve,train,eval}`` those of
+phases 14, 16 and 17's test CLI; the ``_arrff_r*`` keys are kernels B and C
+at AR-RFF's shapes, the ``_mask_r*`` keys B and C at 14 x 14 bins, the
+``_eval_*`` keys A and B on a real image's arguments, the ``train_run_*``
+keys phase 13's numbers, ``mask_paste_ms_per_image`` phase 17's), then the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``. Exits non-zero, with no result line, if there is no CUDA device or
 any phase fails.
@@ -319,21 +349,25 @@ def _roi_align_case(gen, num, batch, strides=(4, 8, 16, 32)):
     return ok, kept
 
 
-def _touched_pixels(level_shapes, rois, lvls, strides=(4, 8, 16, 32)):
-    """How many distinct level pixels the RoIs' 7 x 7 x 2 x 2 samples read."""
+def _touched_pixels(level_shapes, rois, lvls, strides=(4, 8, 16, 32),
+                    out_size=(7, 7)):
+    """How many distinct level pixels the RoIs' out_size x 2 x 2 samples
+    read."""
     from arfe_tpu_torch.ops import roi_align as ra
     corners, valid = ra.sample_corners([s[:3] for s in level_shapes], rois,
-                                       lvls, (7, 7), strides, 2, True)
+                                       lvls, out_size, strides, 2, True)
     return torch.unique(torch.cat([idx[valid] for idx, _ in corners])).numel()
 
 
-def _roi_align_bound(feats, rois, lvls, strides=(4, 8, 16, 32)):
+def _roi_align_bound(feats, rois, lvls, strides=(4, 8, 16, 32),
+                     out_size=(7, 7)):
     """Least time of one RoIAlign call, ms: the output written once and the
     distinct feature pixels its samples touch read once, at HBM rate.
     Returns it and the count of those pixels."""
-    touched = _touched_pixels([f.shape for f in feats], rois, lvls, strides)
+    touched = _touched_pixels([f.shape for f in feats], rois, lvls, strides,
+                              out_size)
     c, isz = feats[0].shape[-1], feats[0].element_size()
-    nbytes = (touched + rois.shape[0] * 49) * c * isz
+    nbytes = (touched + rois.shape[0] * out_size[0] * out_size[1]) * c * isz
     return nbytes / HBM_BYTES_PER_S * 1e3, touched
 
 
@@ -489,7 +523,8 @@ def _bf16_backward_ms(g, rois, lvls, shapes):
 
     from arfe_tpu_torch.ops import roi_align as ra
     ctx = SimpleNamespace(
-        saved_tensors=(rois, lvls), args=((7, 7), (4, 8, 16, 32), 2, True),
+        saved_tensors=(rois, lvls),
+        args=(tuple(g.shape[1:3]), (4, 8, 16, 32), 2, True),
         levels=[(torch.Size(s), torch.bfloat16) for s in shapes])
     g16 = g.to(torch.bfloat16)
     ms = cuda_ms(lambda: ra.RoIAlignFunction.backward(ctx, g16), graph=True)
@@ -509,9 +544,11 @@ def check_roi_align_bwd_step(args, key='_step_rois', plain=False):
     version's time with ``plain``). The row's keys end in ``key``."""
     from arfe_tpu_torch.ops import roi_align as ra
     g, rois, lvls, shapes = args
-    got = ra.roi_align_backward_cuda(g, rois, lvls, shapes)
-    want = ra.roi_align_backward_plain(g, rois, lvls, shapes)
-    scale = ra.roi_align_backward_plain(g.abs(), rois, lvls, shapes)
+    out_size = tuple(g.shape[1:3])
+    got = ra.roi_align_backward_cuda(g, rois, lvls, shapes, out_size)
+    want = ra.roi_align_backward_plain(g, rois, lvls, shapes, out_size)
+    scale = ra.roi_align_backward_plain(g.abs(), rois, lvls, shapes,
+                                        out_size)
     torch.cuda.synchronize()
     ok, err = True, 0.0
     for d, w, s in zip(got, want, scale):
@@ -519,14 +556,15 @@ def check_roi_align_bwd_step(args, key='_step_rois', plain=False):
         ok = ok and bool((diff <= 1e-5 * s + 1e-7).all()) \
             and bool(torch.isfinite(d).all())
         err = max(err, diff.max().item())
-    ms = cuda_ms(lambda: ra.roi_align_backward_cuda(g, rois, lvls, shapes),
-                 graph=True)
+    ms = cuda_ms(lambda: ra.roi_align_backward_cuda(g, rois, lvls, shapes,
+                                                    out_size), graph=True)
     pixels = sum(b * h * w for b, h, w, _ in shapes)
     bound = (g.numel() + pixels * g.shape[-1]) * 4 / HBM_BYTES_PER_S * 1e3
-    touched = _touched_pixels(shapes, rois, lvls)
+    touched = _touched_pixels(shapes, rois, lvls, out_size=out_size)
     per_level = torch.bincount(lvls.long(), minlength=4).tolist()
-    print(f'roi_align_bwd on a training step\'s RoIs R={rois.shape[0]} '
-          f'(per level {per_level}, {touched} distinct pixels): max_abs_err '
+    print(f'roi_align_bwd on a training step\'s RoIs R={rois.shape[0]} at '
+          f'{out_size[0]} x {out_size[1]} bins (per level {per_level}, '
+          f'{touched} distinct pixels): max_abs_err '
           f'{err:.3e} (tol 1e-5 sum|terms| + 1e-7) {"ok" if ok else "FAIL"}; '
           f'kernel {ms:.4f} ms, bound {bound:.4f} ms')
     step_ms, step_bound = _bf16_backward_ms(g, rois, lvls, shapes)
@@ -534,7 +572,7 @@ def check_roi_align_bwd_step(args, key='_step_rois', plain=False):
            'backward_bf16_ms': step_ms, 'backward_bf16_bound_ms': step_bound}
     if plain:
         row['plain_ms'] = cuda_ms(lambda: ra.roi_align_backward_plain(
-            g, rois, lvls, shapes), iters=5)
+            g, rois, lvls, shapes, out_size), iters=5)
         print(f'roi_align_bwd R={rois.shape[0]}: plain {row["plain_ms"]:.4f}'
               ' ms')
     return ok, {k + key: v for k, v in row.items()}
@@ -616,18 +654,24 @@ def serve(model, requests):
     pays one-time set-up, such as cuDNN's algorithm choice, so each comes
     twice). Returns the kernel launches of the run, whether every request
     launched kernel A once and kernel B exactly once (one extraction of all
-    its RoIs) and gave finite detections of the contract's shape, and
-    kernel B's arguments in the first request of each (batch, dtype)."""
+    its RoIs; a Mask R-CNN twice: its boxes' 7 x 7 and its detections' 14
+    x 14 bins) and gave finite detections (and mask logits) of the
+    contract's shape, and kernel B's arguments in the first request of each
+    (batch, dtype), at 14 x 14 bins under (batch, dtype, 14)."""
     from arfe_tpu_torch.ops import fused_attention as fa
     from arfe_tpu_torch.ops import roi_align as ra
     kernel_b, args = ra.roi_align_cuda, {}
     gen = torch.Generator(device='cuda').manual_seed(2)
     ok = True
+    with_mask = getattr(model.roi_head, 'with_mask', False)
     fa.launches = ra.launches = 0
     for i, (b, dt) in enumerate(requests):
-        def keep_args(feats, rois, lvls, *rest, key=(b, dt), **kwargs):
-            args.setdefault(key, (feats, rois.clone(), lvls.clone()))
-            return kernel_b(feats, rois, lvls, *rest, **kwargs)
+        def keep_args(feats, rois, lvls, out_size=(7, 7), *rest, key=(b, dt),
+                      **kwargs):
+            args.setdefault(key if tuple(out_size) == (7, 7)
+                            else key + (out_size[0],),
+                            (feats, rois.clone(), lvls.clone()))
+            return kernel_b(feats, rois, lvls, out_size, *rest, **kwargs)
         ra.roi_align_cuda = keep_args
         img = (torch.randn((b, H, W, 3), generator=gen, device='cuda')
                * 0.2).to(dt)
@@ -637,20 +681,27 @@ def serve(model, requests):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            dets, labels, valid = model.simple_test(img, shapes, scales,
-                                                    rescale=True)
+            out = model.simple_test(img, shapes, scales, rescale=True)
             torch.cuda.synchronize()
         finally:
             ra.roi_align_cuda = kernel_b
         ms = (time.perf_counter() - t0) * 1e3
+        dets, labels, valid = out[:3]
         da, dr = fa.launches - a0, ra.launches - r0
         good = (dets.shape == (b, 100, 5) and labels.shape == (b, 100)
-                and bool(torch.isfinite(dets).all()) and da == 1 and dr == 1)
+                and bool(torch.isfinite(dets).all()) and da == 1
+                and dr == 1 + with_mask and len(out) == 3 + with_mask)
+        rois = f'{args[b, dt][1].shape[0]} RoIs'
+        if with_mask:
+            good = good and out[3].shape == (b, 100, 28, 28) \
+                and bool(torch.isfinite(out[3]).all())
+            rois += (f' at 7 x 7 and {args[b, dt, 14][1].shape[0]} at 14 x '
+                     f'14, mask logits {tuple(out[3].shape)} in '
+                     f'[{out[3].min().item():.3f}, {out[3].max().item():.3f}]')
         ok = ok and good
         print(f'request {i}: bs{b} {str(dt)[6:]} {ms:.2f} ms, '
               f'{int(valid.sum())} detections, launches attention {da} '
-              f'roi_align {dr} over {args[b, dt][1].shape[0]} RoIs '
-              f'{"ok" if good else "FAIL"}')
+              f'roi_align {dr} over {rois} {"ok" if good else "FAIL"}')
     return {'fused_attention': fa.launches, 'roi_align': ra.launches}, ok, \
         args
 
@@ -663,7 +714,9 @@ def reference_check(model, cfg=FLAGSHIP_CFG):
     """Same weights, same f32 image (1, 320, 480, 3): features within 1e-4
     of their scale, and every CPU detection scoring >= 0.1 matched on the
     card by one of its label with IoU > 0.7 (a box of zero area: within 1
-    px on every side) and a score within 1e-2."""
+    px on every side) and a score within 1e-2; for a mask model, each
+    matched detection's mask logits (boxes of nonzero area) within 1e-3 of
+    the largest |logit| (at least 1) of the CPU's."""
     from arfe_tpu_torch.apis import init_detector
     from arfe_tpu_torch.core.bbox import bbox_overlaps
     cpu = init_detector(cfg, device='cpu')
@@ -692,12 +745,27 @@ def reference_check(model, cfg=FLAGSHIP_CFG):
         & ((wd[:, None, 4] - gd[None, :, 4]).abs() < 1e-2)
     matched = int(close.any(dim=1).sum())
     ok = max(errs) <= 1e-4 and len(wd) > 0 and matched == len(wd)
+    masks = ''
+    if len(want) == 4:
+        # the first card detection matching each CPU one, boxes of nonzero
+        # area
+        wm = want[3][0][keep]
+        gm = got[3][0][got[2][0]]
+        pairs = [(i, int(torch.nonzero(close[i])[0]))
+                 for i in range(len(wd)) if close[i].any() and not flat[i]]
+        scale = max(1.0, wm.abs().max().item()) if len(wm) else 1.0
+        err = max((float((gm[j] - wm[i]).abs().max()) for i, j in pairs),
+                  default=float('inf'))
+        ok = ok and len(pairs) > 0 and err <= 1e-3 * scale
+        masks = (f'; mask logits of {len(pairs)} matched detections: max '
+                 f'abs err {err:.3e} (tol 1e-3 x {scale:.3f}), CPU logits '
+                 f'in [{wm.min().item():.3f}, {wm.max().item():.3f}]')
     print(f'reference (CPU plain path, 320x480 f32): feature rel err '
           f'{max(errs):.2e} (tol 1e-4), {matched}/{len(wd)} detections '
           f'matched ({int(flat.sum())} of zero area), {int(got[2].sum())} '
           f'on the card (lowest score '
-          f'{gd[:, 4].min().item() if len(gd) else float("nan"):.4f}) '
-          f'{"ok" if ok else "FAIL"}')
+          f'{gd[:, 4].min().item() if len(gd) else float("nan"):.4f})'
+          f'{masks} {"ok" if ok else "FAIL"}')
     for i in torch.nonzero(~close.any(dim=1)).flatten().tolist():
         print(f'  unmatched: label {int(wl[i])} score {wd[i, 4]:.4f} box '
               f'{[round(x, 2) for x in wd[i, :4].tolist()]}')
@@ -711,23 +779,28 @@ def reference_check(model, cfg=FLAGSHIP_CFG):
 def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
           must_move=()):
     """Bs2 training steps at 800x1344 of the ``cfg`` detector, one per entry
-    of ``dtypes``. Returns the model, its parameters before the first step,
-    the kernel launches of the run, kernel C's arguments in the first step,
-    and whether every step gave finite losses (a "+fac" head's
-    ``loss_multi_cls`` among them) and launched kernels A, B and C once
-    each, the frozen parameters stayed without a gradient, every trainable
-    tensor moved whose gradient was, in some step, large enough for the
-    step to move it in f32 (the others are named: those with a gradient
-    exactly 0 in every step, and those whose gradient the warm-up learning
-    rate scales below rounding), and every tensor of the bbox head's
-    ``must_move`` modules moved."""
+    of ``dtypes`` (with the bench's random mask crops for a mask head).
+    Returns the model, its parameters before the first step, the kernel
+    launches of the run, kernel C's arguments in the first step by bin
+    count (``{7: [...]}``, and ``14`` for the mask branch's), and whether
+    every step gave finite losses (a "+fac" head's ``loss_multi_cls`` and a
+    mask head's ``loss_mask`` among them) and launched kernels A, B and C
+    once each (B and C twice with a mask head), the frozen parameters
+    stayed without a gradient, every trainable tensor moved whose gradient
+    was, in some step, large enough for the step to move it in f32 (the
+    others are named: those with a gradient exactly 0 in every step, and
+    those whose gradient the warm-up learning rate scales below rounding),
+    and every tensor of the ``must_move`` modules moved (a name of the
+    bbox head's, or a dotted prefix)."""
     from arfe_tpu_torch.ops import fused_attention as fa
     from arfe_tpu_torch.ops import roi_align as ra
     from arfe_tpu_torch.train import make_train_step
     t0 = time.time()
     model, opt, scheduler, frozen = bench.build_trainer(cfg)
     step = make_train_step(model, opt, scheduler)
-    batches = {dt: bench.synthetic_batch(2, dtype=dt) for dt in set(dtypes)}
+    with_mask = getattr(model.roi_head, 'with_mask', False)
+    batches = {dt: bench.synthetic_batch(2, dtype=dt, masks=with_mask)
+               for dt in set(dtypes)}
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
     trainable = [k for k in before if not any(k.startswith(f)
                                               for f in frozen)]
@@ -753,12 +826,12 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
         return out
     rpn._targets = keep_weights
     # kernel C's cotangent, RoIs and levels in the first step, for timing
-    kernel_c, step_args = ra.roi_align_backward_cuda, []
+    kernel_c, step_args = ra.roi_align_backward_cuda, {}
 
     def keep_args(g, rois, lvls, shapes, *args, **kwargs):
-        if not step_args:
-            step_args.extend((g.clone(), rois.clone(), lvls.clone(),
-                              [tuple(s) for s in shapes]))
+        if g.shape[1] not in step_args:
+            step_args[g.shape[1]] = [g.clone(), rois.clone(), lvls.clone(),
+                                     [tuple(s) for s in shapes]]
         return kernel_c(g, rois, lvls, shapes, *args, **kwargs)
     ra.roi_align_backward_cuda = keep_args
     gen = torch.Generator(device='cuda').manual_seed(4)
@@ -787,15 +860,18 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
             movable = {k: movable[k] or b for k, b in zip(trainable, big)}
             top = (sampled['weights'][:, -n_top:] > 0).sum(-1).tolist()
             good = all(np.isfinite(v) for v in logs.values()) \
-                and grew == [1, 1, 1] and ('loss_multi_cls' in logs
-                                           or not model.roi_head
-                                           .with_multi_cls)
+                and grew == [1, 1 + with_mask, 1 + with_mask] \
+                and ('loss_multi_cls' in logs
+                     or not model.roi_head.with_multi_cls) \
+                and ('loss_mask' in logs) == with_mask
             ok = ok and good
+            rois = ' and '.join(f'{a[1].shape[0]} RoIs at {n} x {n}'
+                                for n, a in sorted(step_args.items()))
             print(f'train step {i}: bs2 {str(dt)[6:]} {ms:.2f} ms, '
                   + ', '.join(f'{k} {v:.5f}' for k, v in logs.items())
                   + f', launches attention {grew[0]} roi_align {grew[1]} '
-                  f'roi_align_bwd {grew[2]} (over {step_args[1].shape[0]} '
-                  f'RoIs), RPN anchors sampled at stride {top_stride[0]} '
+                  f'roi_align_bwd {grew[2]} (over {rois}), RPN anchors '
+                  f'sampled at stride {top_stride[0]} '
                   f'{top} {"ok" if good else "FAIL"}')
     finally:
         del rpn._targets
@@ -810,8 +886,9 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
     zero_grad = [k for k in trainable if not had_grad[k]]
     small_grad = [k for k in unchanged if had_grad[k] and not movable[k]]
     stuck = [k for k in unchanged if movable[k]]
-    mine = [k for k in params if any(k.startswith(f'roi_head.bbox_head.{m}.')
-                                     for m in must_move)]
+    mine = [k for k in params if any(
+        k.startswith(m if '.' in m else f'roi_head.bbox_head.{m}.')
+        for m in must_move)]
     mine_stuck = [k for k in mine if k in unchanged]
     theta = model.neck[1].refine.theta.conv.weight.grad
     live = theta is not None and float(theta.abs().max()) > 0
@@ -883,7 +960,9 @@ def train_reference_check(model, start, cfg=FLAGSHIP_CFG, readings=True):
     cpu = init_detector(cfg, device='cpu', train=True)
     cpu.load_state_dict(model.state_dict())
     batch = bench.synthetic_batch(2, h, w, (float(h), float(w)),
-                                  torch.float32, seed=6, device='cpu')
+                                  torch.float32, seed=6, device='cpu',
+                                  masks=getattr(model.roi_head, 'with_mask',
+                                                False))
     r = bench.compare_with_cpu(model, cpu, batch)
     print(f'train reference (CPU plain path, starting weights, 2x{h}x{w} '
           f'f32, {r["cpu_s"]:.1f} '
@@ -936,7 +1015,10 @@ def level_error_readings(model, batch, r, scale=1.03):
 # classifiers are scaled so that the scores spread below the cut (at
 # 320x480 on the CPU: 29 and 18 detections score >= 0.1, the 100th 0.075
 # and 0.082).
-CLS_SCALE = {'arrff': 0.1, 'fac': 0.006}
+CLS_SCALE = {'arrff': 0.1, 'fac': 0.006, 'mask': 1.0}
+# Mask R-CNN's classifier is the flagship's and does not saturate (at
+# 320x480: 19 detections score >= 0.1, the 100th 0.067); its entry draws
+# conv_out on the CPU, as the others do
 
 
 def _roi_census(rois, lvls, what):
@@ -1020,8 +1102,9 @@ def arfe(name, requests, train_dtypes, must_move):
     if name == 'arrff':
         with phase('arrff: kernel C at R = 3072'):
             results['kernel_c'], rows[1] = check_roi_align_bwd_step(
-                step_args, key='_arrff_r3072', plain=True)
-            _roi_census(step_args[1], step_args[2], 'AR-RFF training step')
+                step_args[7], key='_arrff_r3072', plain=True)
+            _roi_census(step_args[7][1], step_args[7][2],
+                        'AR-RFF training step')
     del step_args
     with phase(f'{name}: training step, card against CPU'):
         results['train_reference'] = train_reference_check(
@@ -1118,6 +1201,10 @@ class RequestLog:
 
 
 def _flat(per_class):
+    """(score, label, box) of each detection of an image's result (the
+    boxes of a mask model's ``(bbox, segm)``)."""
+    if isinstance(per_class, tuple):
+        per_class = per_class[0]
     return [(float(box[4]), c, box[:4]) for c, boxes in enumerate(per_class)
             for box in boxes]
 
@@ -1371,14 +1458,15 @@ def evaluate_arrff():
 
 
 def eval_reference_check(model, images, root=EVAL_ROOT, path=PORT_CFG,
-                         match=False):
+                         match=False, metrics=('bbox',)):
     """The same weights and files (``root``) on the CPU's plain path and on
     the card in f32, at ``CPU_SCALE``; ground truth seeded from the CPU's
-    detections. The six bbox stats within 1e-3, and the CPU's mAP inside
-    (0.05, 0.999); detections the rule does not match are printed. With
-    ``match``, every detection of each side must instead be matched on the
-    other (weights whose detections are under the 2 px that ground truth
-    is seeded from leave the stats at 0)."""
+    detections (and masks). The six stats of each of ``metrics`` within
+    1e-3, and the CPU's mAP inside (0.05, 0.999); detections the rule does
+    not match are printed. With ``match``, every detection of each side
+    must instead be matched on the other (weights whose detections are
+    under the 2 px that ground truth is seeded from leave the stats at
+    0)."""
     from arfe_tpu_torch.apis import init_detector, single_device_test
     from arfe_tpu_torch.data import synthetic
     from arfe_tpu_torch.tools.test import build_test_loader
@@ -1394,9 +1482,10 @@ def eval_reference_check(model, images, root=EVAL_ROOT, path=PORT_CFG,
     synthetic.write_annotations(f'{root}/ann.json', images,
                                 synthetic.seed_ground_truth(images, want))
     dataset = build_test_loader(cfg)[0]
-    s_cpu = dataset.evaluate(want, metric='bbox')
-    s_card = dataset.evaluate(got, metric='bbox')
-    diff = max(abs(s_cpu[k] - s_card[k]) for k in STATS)
+    s_cpu = dataset.evaluate(want, metric=list(metrics))
+    s_card = dataset.evaluate(got, metric=list(metrics))
+    stats = [k.replace('bbox', m) for m in metrics for k in STATS]
+    diff = max(abs(s_cpu[k] - s_card[k]) for k in stats)
     unmatched, detections = 0, 0
     for i, (w, g) in enumerate(zip(want, got)):
         missing = _unmatched(_flat(w), _flat(g))
@@ -1412,8 +1501,8 @@ def eval_reference_check(model, images, root=EVAL_ROOT, path=PORT_CFG,
                            else 0.05 < s_cpu['bbox_mAP'] < 0.999)
     print(f'eval card f32 against the CPU plain path at {CPU_SCALE} '
           f'({cpu_s:.1f} s on the CPU): CPU '
-          + ', '.join(f'{k} {s_cpu[k]:.4f}' for k in STATS) + '; card '
-          + ', '.join(f'{k} {s_card[k]:.4f}' for k in STATS)
+          + ', '.join(f'{k} {s_cpu[k]:.4f}' for k in stats) + '; card '
+          + ', '.join(f'{k} {s_card[k]:.4f}' for k in stats)
           + f'; largest difference {diff:.2e} (tol 1e-3); {unmatched} of '
           f'{detections} detections unmatched'
           + (' (tol 0)' if match else '') + f' {"ok" if ok else "FAIL"}')
@@ -1787,6 +1876,237 @@ def train_run_arrff(name_limit):
     return ok, launches, row
 
 
+# --------------------------------------------------------------------------
+# phases 14-17: Mask R-CNN + AR-FPN (config #5a): served, kernel B at 14 x
+# 14 bins, trained (kernel C at 14 x 14), and trained and evaluated through
+# the CLIs with bbox and segm
+# --------------------------------------------------------------------------
+
+MASK_PORT_CFG = 'arfe_tpu_torch/configs/mask_rcnn_r50_arfpn_1x_coco.py'
+MASK_ROOT = 'build/mask_coco'
+# the train CLI's run: one epoch of 4 iterations of bs2 on 8 polygon PNGs
+MASK_TRAIN_ITERS = 4
+
+
+def check_roi_align_mask(args):
+    """Kernel B against ``roi_align_pyramid_plain`` at 14 x 14 bins on the
+    mask RoIs (every detection slot, the padding's [0, 0, 0, 0] included),
+    levels and features of the first bs1 and bs2 Mask R-CNN requests (R =
+    100, 200), in bf16 and f32 (the bs2 levels cast to f32; bs1's from the
+    f32 request): equal bit for bit, each timed by graph replay beside its
+    bound and the plain version's time."""
+    from arfe_tpu_torch.ops import roi_align as ra
+    strides, size = (4, 8, 16, 32), (14, 14)
+    ok, row = True, {}
+    for b in (1, 2):
+        for dt in (torch.bfloat16, torch.float32):
+            feats, rois, lvls = args.get((b, dt, 14)) \
+                or args[b, torch.bfloat16, 14]
+            feats = [f.to(dt) for f in feats]
+            num = rois.shape[0]
+
+            def kernel():
+                return ra.roi_align_cuda(feats, rois, lvls, size, strides, 2,
+                                         True)
+            got = kernel()
+            ref = ra.roi_align_pyramid_plain(feats, rois, lvls, size,
+                                             strides, 2, True)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            same = torch.equal(got, ref)
+            pad = int(((rois[:, 3] <= rois[:, 1])
+                       | (rois[:, 4] <= rois[:, 2])).sum())
+            del got, ref
+            ok = ok and same
+            ms = cuda_ms(kernel, graph=True)
+            plain_ms = cuda_ms(lambda: ra.roi_align_pyramid_plain(
+                feats, rois, lvls, size, strides, 2, True), iters=5)
+            bound, touched = _roi_align_bound(feats, rois, lvls, strides,
+                                              size)
+            print(f'roi_align at 14 x 14 R={num} B={b} {str(dt)[6:]} '
+                  f'(Mask R-CNN request, {pad} slots of zero area, per level '
+                  f'{torch.bincount(lvls.long(), minlength=4).tolist()}): '
+                  f'equal to the plain version bit for bit {same}, '
+                  f'max_abs_err {err:.3e}; kernel {ms:.4f} ms, plain '
+                  f'{plain_ms:.4f} ms, bound {bound:.4f} ms ({touched} '
+                  f'distinct pixels) {"ok" if same else "FAIL"}')
+            key = f'_mask_r{num}' + ('_f32' if dt == torch.float32 else '')
+            row.update({'max_abs_err' + key: err, 'ms' + key: ms,
+                        'plain_ms' + key: plain_ms, 'bound_ms' + key: bound})
+    return ok, row
+
+
+def mask_rcnn(requests, train_dtypes):
+    """(a) Serve Mask R-CNN (A once and B twice per request), check it
+    against the CPU, mask logits included; (b) kernel B at 14 x 14 on the
+    requests' mask RoIs; (c) train it (A once, B and C twice per step,
+    ``loss_mask`` finite, ``mask_head.*`` moves), kernel C at 14 x 14 on
+    the first step's mask cotangent, and a training step against the CPU.
+    Returns each check's result, the serving and training runs' launches,
+    and the rows' additions for B and C."""
+    cfg = bench.MASK_CFG
+    results, rows = {}, [{}, {}]
+    with phase('mask: serve'):
+        model = build_detector(cfg, CLS_SCALE['mask'])
+        launches_serve, results['serve'], args = serve(model, requests)
+    with phase('mask: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase('mask: kernel B at 14 x 14'):
+        results['kernel_b'], rows[0] = check_roi_align_mask(args)
+    del args
+    with phase('mask: train'):
+        model, start, launches_train, step_args, results['train'] = \
+            train(cfg, train_dtypes, ('roi_head.mask_head.',))
+    with phase('mask: kernel C at 14 x 14'):
+        results['kernel_c'], rows[1] = check_roi_align_bwd_step(
+            step_args[14], key=f'_mask_r{step_args[14][1].shape[0]}',
+            plain=True)
+    del step_args
+    with phase('mask: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, rows
+
+
+class PasteLog:
+    """Times each call of the host paste of predicted masks (one call per
+    image, ``apis.inference.detections_to_results``)."""
+
+    def __init__(self):
+        from arfe_tpu_torch.apis import inference
+        self.mod, self.paste = inference, inference.paste_masks_np
+        self.calls = []
+
+    def __enter__(self):
+        def timed(mask_pred, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = self.paste(mask_pred, *args, **kwargs)
+            self.calls.append((len(mask_pred), time.perf_counter() - t0))
+            return out
+        self.mod.paste_masks_np = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.paste_masks_np = self.paste
+
+
+def evaluate_mask(name_limit):
+    """(d) Writes 8 PNGs of polygon instances, trains Mask R-CNN at full
+    width through ``tools.train.main`` (one epoch of 4 iterations, bs2
+    bf16, masks and crops through the train pipeline), runs
+    ``tools.test.main`` on ``latest.pth`` with ``--eval bbox segm``, and
+    checks: every iteration launches A once, B and C twice; every evaluated
+    image launches A once and B twice; the twelve stats print; the card's
+    f32 bbox and segm stats with ``latest.pth`` within 1e-3 of the CPU's
+    plain path at ``CPU_SCALE``, ground truth seeded from the CPU's
+    detections and masks, every detection matched one for one (phase 13's
+    classifier spread, ``score_thr=0``). Prints the host paste's time per
+    image. Returns whether all held and the evaluation's launches."""
+    import shutil
+
+    from arfe_tpu_torch.apis import init_detector
+    from arfe_tpu_torch.data import synthetic
+    from arfe_tpu_torch.models.detectors import MaskRCNN
+    from arfe_tpu_torch.ops import fused_attention as fa
+    from arfe_tpu_torch.ops import roi_align as ra
+    from arfe_tpu_torch.tools import test as test_cli
+    from arfe_tpu_torch.tools import train as train_cli
+    shutil.rmtree(MASK_ROOT, ignore_errors=True)
+    t0 = time.time()
+    images, anns = synthetic.write_polygon_set(MASK_ROOT, TRAIN_SIZES,
+                                               seed=13)
+    print(f'mask set: {len(images)} PNGs at {TRAIN_SIZES[:2]}, {len(anns)} '
+          f'polygon instances, written in {time.time() - t0:.1f} s')
+    work = f'{MASK_ROOT}/work'
+    data = [f'data.{split}.{k}={MASK_ROOT}/{v}' for split in
+            ('train', 'val', 'test')
+            for k, v in (('ann_file', 'ann.json'), ('img_prefix', 'imgs/'))]
+    ok = True
+    fa.launches = ra.launches = ra.bwd_launches = 0
+    with TrainRunLog() as run:
+        history = train_cli.main([
+            MASK_PORT_CFG, '--work-dir', work, '--seed', '0', '--dtype',
+            'bf16', '--no-validate', '--options', *data,
+            'model.pretrained=None', 'total_epochs=1',
+            'log_config.interval=1'])
+    per_iter = [r['launches'] for r in run.iters]
+    losses = [e['loss_mask'] for e in history if e['mode'] == 'train']
+    good = len(run.iters) == MASK_TRAIN_ITERS \
+        and set(per_iter) == {(1, 2, 2)} and len(losses) == len(run.iters) \
+        and all(np.isfinite(losses)) and os.path.exists(f'{work}/latest.pth')
+    its = sorted(b['start'] - a['start']
+                 for a, b in zip(run.iters[1:], run.iters[2:]))
+    print(f'mask train CLI: {len(run.iters)} iterations bs2 bf16 at (1333, '
+          f'800), launches per iteration (attention, roi_align, '
+          f'roi_align_bwd) {sorted(set(per_iter))}, loss_mask '
+          f'{[round(v, 4) for v in losses]}, s per iteration after the '
+          f'first two {[round(v, 4) for v in its]} '
+          f'{"ok" if good else "FAIL"}')
+    ok = ok and good
+    # the test CLI, each request's launches counted
+    dumped = f'{work}/{os.path.basename(MASK_PORT_CFG)}'
+    per_request, original = [], MaskRCNN.simple_test
+
+    def counted(self, *args, **kwargs):
+        counts = (fa.launches, ra.launches)
+        out = original(self, *args, **kwargs)
+        per_request.append((fa.launches - counts[0], ra.launches - counts[1]))
+        return out
+    fa.launches = ra.launches = ra.bwd_launches = 0
+    MaskRCNN.simple_test = counted
+    try:
+        with PasteLog() as pastes:
+            metrics = test_cli.main([dumped, f'{work}/latest.pth', '--eval',
+                                     'bbox', 'segm'])
+    finally:
+        del MaskRCNN.simple_test
+    launches = {'fused_attention': fa.launches, 'roi_align': ra.launches,
+                'roi_align_bwd': ra.bwd_launches}
+    n = len(images)
+    stats = [k.replace('bbox', m) for m in ('bbox', 'segm') for k in STATS]
+    good = set(per_request) == {(1, 2)} and len(per_request) == n \
+        and launches == {'fused_attention': n, 'roi_align': 2 * n,
+                         'roi_align_bwd': 0} \
+        and all(k in metrics and np.isfinite(metrics[k]) for k in stats)
+    print(f'mask test CLI on latest.pth --eval bbox segm: launches per image '
+          f'(attention, roi_align) {sorted(set(per_request))} over '
+          f'{len(per_request)} images, {launches}; '
+          + ', '.join(f'{k} {metrics.get(k, float("nan")):.4f}'
+                      for k in stats) + f' {"ok" if good else "FAIL"}')
+    ok = ok and good
+    # the card in f32 against the CPU at CPU_SCALE on four images, every
+    # score kept and the classifier spread (phase 13)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    synthetic.write_annotations(f'{MASK_ROOT}/ann.json', images[:4])
+    compare = f'{MASK_ROOT}/compare_cfg.py'
+    with open(compare, 'w') as f:
+        f.write(f"_base_ = ['{os.path.abspath(dumped)}']\n"
+                'test_cfg = dict(rcnn=dict(score_thr=0.0))\n')
+    model = init_detector(compare, f'{work}/latest.pth')
+    cfg = _eval_config(CPU_SCALE, workers=0, root=MASK_ROOT, path=compare)
+    with PasteLog() as pastes:
+        good = _spread_classifier(model, cfg)
+        ok = good and eval_reference_check(
+            model, images[:4], root=MASK_ROOT, path=compare, match=True,
+            metrics=('bbox', 'segm')) and ok
+    full = sorted(t for k, t in pastes.calls if k == 100)
+    if full:
+        print(f'mask host paste (100 masks into a 480x640 or 640x480 '
+              f'image, numpy): median {full[len(full) // 2] * 1e3:.2f} ms '
+              f'per image ({full[0] * 1e3:.2f}-{full[-1] * 1e3:.2f}) over '
+              f'{len(full)} images ({name_limit} host)')
+    del model
+    torch.cuda.empty_cache()
+    row = {'mask_paste_ms_per_image': full[len(full) // 2] * 1e3
+           if full else None}
+    return ok, launches, row
+
+
 PHASE_SECONDS = {}
 
 
@@ -1825,7 +2145,7 @@ def main():
     with phase('flagship: train'):
         model, start, launches, step_args, ok_train = train()
     with phase('flagship: kernel C on a step\'s RoIs'):
-        ok_step_rois, row_step = check_roi_align_bwd_step(step_args)
+        ok_step_rois, row_step = check_roi_align_bwd_step(step_args[7])
     rows[2].update(row_step)
     del step_args
     with phase('flagship: training step, card against CPU'):
@@ -1847,6 +2167,12 @@ def main():
         ok_train_run, launches_train_run, train_run_row = train_run_arrff(
             name_limit)
     rows[0].update(train_run_row)
+    mask = mask_rcnn([(1, bf)] * 2 + [(2, bf), (1, f32)], [bf, bf, f32])
+    rows[1].update(mask[3][0])
+    rows[2].update(mask[3][1])
+    with phase('mask: train and evaluate through the CLIs'):
+        ok_mask_eval, launches_mask_eval, mask_row = evaluate_mask(name_limit)
+    rows[0].update(mask_row)
     for row in rows:
         row['launches'] = launches[row['name']]
         row['launches_serve'] = launches_serve.get(row['name'], 0)
@@ -1856,13 +2182,18 @@ def main():
             row[f'launches_{name}_train'] = train_runs[row['name']]
         row['launches_arrff_eval'] = launches_eval[row['name']]
         row['launches_arrff_trainrun'] = launches_train_run[row['name']]
+        row['launches_mask_serve'] = mask[1].get(row['name'], 0)
+        row['launches_mask_train'] = mask[2][row['name']]
+        row['launches_mask_eval'] = launches_mask_eval[row['name']]
     failed = [k for k, v in (('kernels', ok_kernels), ('serve', ok_serve),
                              ('reference', ok_ref), ('train', ok_train),
                              ('kernel C on a step', ok_step_rois),
                              ('train reference', ok_train_ref),
                              ('arrff evaluate', ok_eval),
-                             ('arrff train run', ok_train_run)) if not v]
-    failed += [f'{name} {k}' for name, r in (('arrff', arrff), ('fac', fac))
+                             ('arrff train run', ok_train_run),
+                             ('mask evaluate', ok_mask_eval)) if not v]
+    failed += [f'{name} {k}' for name, r in (('arrff', arrff), ('fac', fac),
+                                             ('mask', mask))
                for k, v in r[0].items() if not v]
     print(f'phases: {len(PHASE_SECONDS)}, total {time.time() - t0:.1f} s')
     if failed:

@@ -2,7 +2,8 @@
 helpers, the ARFE cross-entropy variants, the two heads, and the tiny AR-RFF
 and "+fac" detectors (``configs/arfe/faster_rcnn_r50_arfpn_{arrff,fac}_1x_
 coco.py`` with the overrides of ``__graft_entry__._build_flagship(tiny=True)``)
-served and trained, with the same weights (JAX params -> numpy ->
+served and trained, with the same weights (the port's seeded weights
+through ``state_dict_to_params``, perturbed, and back through
 ``params_to_state_dict``), images and ground truth.
 
 The JAX instance gets only what ``test_torch_train.py`` gives it: the
@@ -21,6 +22,7 @@ from test_torch_train import (B, G, H, P, SHAPES, W, _ground_truth,
                               _patch_jax, _patch_torch, stop_roi_gradient)
 
 from arfe_tpu import Config as JConfig
+from arfe_tpu.convert import state_dict_to_params
 from arfe_tpu.models import build_detector as j_build_detector
 from arfe_tpu.models import losses as jl
 from arfe_tpu.models.builder import build_head as j_build_head
@@ -161,8 +163,10 @@ def test_cross_entropy_loss_builds_the_variants():
         is tl.distribution_loss
     assert tl.CrossEntropyLoss(use_multi_cls=True).cls_criterion \
         is tl.multi_classes_loss
-    with pytest.raises(NotImplementedError):
-        tl.CrossEntropyLoss(use_mask=True)
+    assert tl.CrossEntropyLoss(use_mask=True).cls_criterion \
+        is tl.mask_cross_entropy
+    with pytest.raises(ValueError):
+        tl.CrossEntropyLoss(use_sigmoid=True, use_mask=True)
 
 
 # --------------------------------------------------------------------------
@@ -239,32 +243,32 @@ FAST_COMPILE = {'xla_backend_optimization_level': 0,
                 'xla_llvm_disable_expensive_passes': True}
 
 
-def _key(seed):
-    """A key of the RNG bit generator, whose init compiles faster than
-    threefry's."""
-    return jax.random.key(seed, impl='unsafe_rbg')
+def _port_init(kind):
+    """The port's seeded random weights of the tiny ``kind`` detector, as a
+    JAX parameter tree (no JAX compilation)."""
+    cfg = Config(tiny(Config.fromfile(CONFIGS[kind]).todict()))
+    return state_dict_to_params(init_detector(cfg, device='cpu').state_dict())
 
 
 @pytest.fixture(scope='module')
 def trunk():
-    """The JAX init of the tiny AR-RFF detector. The "+fac" detector takes
-    its backbone, necks and RPN, which are the same modules, and inits its
-    own RoI head: one compilation of the whole init instead of two."""
-    return jax.tree_util.tree_map(np.array, jax.jit(
-        _jax_detector('arrff').init, compiler_options=FAST_COMPILE)(_key(0)))
+    """The tiny AR-RFF detector's weights. The "+fac" detector takes its
+    backbone, necks and RPN, which are the same modules, with its own RoI
+    head's."""
+    return _port_init('arrff')
 
 
 @pytest.fixture(scope='module', params=['arrff', 'fac'])
 def run(request, trunk):
-    """One config's tiny detector on both sides: detections of two 128x160
-    images, and one ``forward_train`` + gradient with shared priorities."""
+    """One config's tiny detector on both sides, from the same weights (the
+    port's seeded ones, perturbed): detections of two 128x160 images, and
+    one ``forward_train`` + gradient with shared priorities."""
     kind = request.param
     rng = np.random.RandomState(0)
     jm = _jax_detector(kind)
     params = jax.tree_util.tree_map(np.copy, trunk)
     if kind != 'arrff':
-        params['roi_head'] = jax.tree_util.tree_map(np.array, jax.jit(
-            jm.roi_head.init, compiler_options=FAST_COMPILE)(_key(1)))
+        params['roi_head'] = _port_init(kind)['roi_head']
     params = det._perturb(params, rng)
     img = (rng.randn(B, H, W, 3) * 0.2).astype(np.float32)
     gt, gvalid, glabels = _ground_truth(rng)

@@ -18,6 +18,10 @@ from arfe_tpu_torch.models import build_detector
 
 SHAPES = np.array([[128., 150.], [120., 160.]], np.float32)
 SCALES = np.array([[1.5] * 4, [2.0] * 4], np.float32)
+# XLA compiles the tiny detector's programs faster at its lowest
+# optimisation level; it runs them a little slower
+FAST_COMPILE = {'xla_backend_optimization_level': 0,
+                'xla_llvm_disable_expensive_passes': True}
 
 
 def tiny_cfg():
@@ -60,17 +64,20 @@ def _perturb(params, rng):
 def runs():
     jm = _build_flagship(tiny=True)
     params = jax.tree_util.tree_map(
-        np.array, jax.jit(jm.init)(jax.random.PRNGKey(0)))
+        np.array, jax.jit(jm.init, compiler_options=FAST_COMPILE)(
+            jax.random.PRNGKey(0)))
     rng = np.random.RandomState(0)
     params = _perturb(params, rng)
     img = (rng.randn(2, 128, 160, 3) * 0.2).astype(np.float32)
 
     jp = jax.tree_util.tree_map(jnp.asarray, params)
-    jfeat = jax.jit(jm.extract_feat)(jp, jnp.asarray(img))
-    jprops = jax.jit(jm.rpn_head.get_proposals)(
+    jfeat = jax.jit(jm.extract_feat, compiler_options=FAST_COMPILE)(
+        jp, jnp.asarray(img))
+    jprops = jax.jit(jm.rpn_head.get_proposals,
+                     compiler_options=FAST_COMPILE)(
         jp['rpn_head'], jfeat, jnp.asarray(SHAPES))
     jdets = jax.jit(lambda p, f, pr, pv, s, sf: jm.roi_head.simple_test(
-        p, f, pr, pv, s, sf, rescale=True))(
+        p, f, pr, pv, s, sf, rescale=True), compiler_options=FAST_COMPILE)(
             jp['roi_head'], jfeat, *jprops, jnp.asarray(SHAPES),
             jnp.asarray(SCALES))
 

@@ -481,3 +481,105 @@ def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
             assert buf.device == q.device
             assert torch.equal(buf.cpu(), opt.state[p][
                 'momentum_buffer'].cpu())
+
+
+def _mask_rois(gen, dev, num=200, batch=2, h=200.0, w=336.0):
+    """Detection-like boxes of 2-200 px and, as ``simple_test_mask`` extracts
+    the empty detection slots, a quarter of them the padding's [0, 0, 0,
+    0]."""
+    rois = _rois(gen, dev, num=num, batch=batch, h=h, w=w)
+    rois[num - num // 4:, 1:] = 0.0
+    return rois
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('channels', [256, 64])
+def test_roi_align_kernel_at_14x14_matches_plain(cuda, dtype, channels):
+    """Kernel B at the mask extractor's 14 x 14 bins: bit for bit the plain
+    version's in f32 (products and sums rounded one by one) and in bf16
+    (the same f32 sums, rounded once), padding slots included."""
+    gen = torch.Generator(device=cuda).manual_seed(14 + channels)
+    strides = (4, 8, 16, 32)
+    feats = [torch.randn((2, 200 // s, 336 // s, channels), generator=gen,
+                         device=cuda).to(dtype) for s in strides]
+    rois = _mask_rois(gen, cuda)
+    lvls = _shifted_levels(gen, rois, cuda)
+    before = ra.launches
+    got = ra.roi_align_pyramid(feats, rois, lvls, (14, 14), strides, 0)
+    assert ra.launches == before + 1
+    ref = ra.roi_align_pyramid_plain(feats, rois, lvls, (14, 14), strides, 2)
+    assert got.shape == (200, 14, 14, channels) and got.dtype == dtype
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize('channels', [256, 64])
+def test_roi_align_backward_kernel_at_14x14_matches_plain(cuda, channels):
+    """Kernel C at 14 x 14 bins (a RoI's footprint up to 56 x 56 pixels, 112
+    corner candidates per axis pair), padding slots included: within 1e-5
+    of the sum of its terms' magnitudes, plus 1e-7."""
+    gen = torch.Generator(device=cuda).manual_seed(15 + channels)
+    rois = _mask_rois(gen, cuda)
+    lvls = _shifted_levels(gen, rois, cuda)
+    shapes = _level_shapes(channels)
+    g = torch.randn((rois.shape[0], 14, 14, channels), generator=gen,
+                    device=cuda)
+    before = ra.bwd_launches
+    got = ra.roi_align_backward_cuda(g, rois, lvls, shapes, (14, 14))
+    assert ra.bwd_launches == before + 1
+    want = ra.roi_align_backward_plain(g, rois, lvls, shapes, (14, 14))
+    scale = ra.roi_align_backward_plain(g.abs(), rois, lvls, shapes,
+                                        (14, 14))
+    for d, w, s in zip(got, want, scale):
+        assert bool(((d - w).abs() <= 1e-5 * s + 1e-7).all())
+    assert any(bool(w.any()) for w in want)
+
+
+def _tiny_mask_cfg():
+    cfg = _tiny_cfg(bench.MASK_CFG)
+    cfg.model.roi_head.mask_roi_extractor.out_channels = 64
+    cfg.model.roi_head.mask_head.update(in_channels=64, conv_out_channels=64)
+    return cfg
+
+
+def test_mask_rcnn_on_card_matches_cpu(cuda):
+    """The tiny Mask R-CNN on the card: one launch of A and two of B (7 x 7
+    and 14 x 14) per request; detections and the matched detections' mask
+    logits against the CPU; one f32 step (A once, B and C twice) against
+    the CPU's losses and gradients, ``mask_head.*`` included."""
+    cfg = _tiny_mask_cfg()
+    cpu = init_detector(cfg, device='cpu', train=True)
+    with torch.no_grad():
+        cpu.neck[1].refine.conv_out.conv.weight.normal_(0, 0.02)
+        cpu.roi_head.bbox_head.fc_cls.weight.mul_(30)
+    gpu = init_detector(cfg, device='cuda', train=True)
+    gpu.load_state_dict(cpu.state_dict())
+    img = torch.randn((1, 192, 256, 3),
+                      generator=torch.Generator().manual_seed(0)) * 0.2
+    shapes, scales = torch.tensor([[192., 250.]]), torch.ones(1, 4)
+    want = cpu.simple_test(img, shapes, scales)
+    a0, r0 = fa.launches, ra.launches
+    got = [t.cpu() for t in gpu.simple_test(img.to(cuda), shapes.to(cuda),
+                                            scales.to(cuda))]
+    assert fa.launches == a0 + 1 and ra.launches == r0 + 2
+    wv, gv = want[2][0], got[2][0]
+    wd, gd = want[0][0][wv], got[0][0][gv]
+    assert len(wd) >= 5 and len(gd) == len(wd)
+    close = (bbox_overlaps(wd[:, :4], gd[:, :4]) > 0.7) \
+        & (want[1][0][wv][:, None] == got[1][0][gv][None]) \
+        & ((wd[:, None, 4] - gd[None, :, 4]).abs() < 1e-2)
+    assert bool(close.any(dim=1).all())
+    wm, gm = want[3][0][wv], got[3][0][gv]
+    j = close.float().argmax(dim=1)
+    assert (gm[j] - wm).abs().max().item() <= 1e-3 * max(
+        1.0, wm.abs().max().item())
+    batch = bench.synthetic_batch(2, 192, 256, (192., 250.), torch.float32,
+                                  seed=3, device='cpu', masks=True)
+    cpu.train()
+    gpu.train()
+    a0, r0, c0 = fa.launches, ra.launches, ra.bwd_launches
+    r = bench.compare_with_cpu(gpu, cpu, batch)
+    assert 'loss_mask' in r['loss_err']
+    assert (fa.launches - a0, ra.launches - r0, ra.bwd_launches - c0) \
+        == (1, 2, 2)
+    assert r['ok'], r
+    assert any(k.startswith('roi_head.mask_head.') for k in r['cpu'][1])

@@ -1,7 +1,8 @@
 """The port stands alone: importing any of its modules (the data and
-evaluation path, the training run, and the ``test``, ``train`` and
-``e2e_smoke`` CLIs among them), or ``chip_smoke``, loads no JAX, no optax and
-nothing of the JAX package; its entry point defaults to the card."""
+evaluation path, the training run, the masks of Mask R-CNN, and the
+``test``, ``train`` and ``e2e_smoke`` CLIs among them), or ``chip_smoke``,
+loads no JAX, no optax and nothing of the JAX package; its entry point
+defaults to the card."""
 import os
 import subprocess
 import sys
@@ -39,7 +40,13 @@ missing = [m for m in ('arfe_tpu_torch.train.optimizer',
                        'arfe_tpu_torch.tools.e2e_smoke',
                        'arfe_tpu_torch.utils.logger',
                        'arfe_tpu_torch.utils.collect_env',
-                       'arfe_tpu_torch.utils.pretrained')
+                       'arfe_tpu_torch.utils.pretrained',
+                       'arfe_tpu_torch.core.mask.structures',
+                       'arfe_tpu_torch.core.mask.rle',
+                       'arfe_tpu_torch.core.mask.mask_target',
+                       'arfe_tpu_torch.models.roi_heads.mask_heads.'
+                       'fcn_mask_head',
+                       'arfe_tpu_torch.data.synthetic')
            if m not in sys.modules]
 print('modules:', len(sys.modules), 'forbidden:', bad, 'missing:', missing)
 sys.exit(1 if bad or missing else 0)

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_detector import _perturb, tiny_cfg
+from test_torch_detector import FAST_COMPILE, _perturb, tiny_cfg
 
 from __graft_entry__ import _build_flagship
 from arfe_tpu.core.bbox.coder import bbox2delta as j_bbox2delta
@@ -126,7 +126,8 @@ def run():
     rng = np.random.RandomState(0)
     jm = _build_flagship(tiny=True)
     params = _perturb(jax.tree_util.tree_map(
-        np.array, jax.jit(jm.init)(jax.random.PRNGKey(0))), rng)
+        np.array, jax.jit(jm.init, compiler_options=FAST_COMPILE)(
+            jax.random.PRNGKey(0))), rng)
     gt, gvalid, glabels = _ground_truth(rng)
     img = (rng.randn(B, H, W, 3) * 0.2).astype(np.float32)
     props, pvalid = _proposals(rng, gt, gvalid)
@@ -155,8 +156,8 @@ def run():
         return j_parse_losses(jm.forward_train(p, *jargs,
                                                jax.random.PRNGKey(0)))
 
-    (_, jlogs), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        jp)
+    (_, jlogs), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True),
+                                 compiler_options=FAST_COMPILE)(jp)
     targs = [torch.from_numpy(x) for x in (img, SHAPES, gt, gvalid, glabels)]
     total, tlogs = parse_losses(tm.forward_train(
         *targs, torch.Generator().manual_seed(0)))

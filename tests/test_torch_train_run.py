@@ -7,8 +7,8 @@ reading the port's checkpoint, and the CLIs.
 The loop runs the JAX tool's tiny config (``tools/e2e_smoke.py``: R18, a
 64-channel FPN, ``Shared2FCBBoxHead``, one class) on 4 PNGs of 128x160 with
 flips off, 2 epochs of 2 iterations, its LR stepped after the first epoch
-and its gradient clipped at 5. Both sides start from the JAX package's
-init (through ``params_to_state_dict``) and share numpy-drawn sampling
+and its gradient clipped at 5. Both sides start from the port's seeded
+weights (through ``state_dict_to_params``) and share numpy-drawn sampling
 priorities, as ``test_torch_train.py`` does; the JAX instance's RoIs get no
 gradient. ``tools.e2e_smoke`` runs the AR-FPN neck and the AR-RFF head.
 """
@@ -25,6 +25,7 @@ from test_torch_train import _patch_jax, _patch_torch, stop_roi_gradient
 
 from arfe_tpu import Config as JConfig
 from arfe_tpu.apis.inference import init_detector as j_init_detector
+from arfe_tpu.convert import state_dict_to_params
 from arfe_tpu.data import build_dataloader as j_build_dataloader
 from arfe_tpu.data import build_dataset as j_build_dataset
 from arfe_tpu.data.builder import GroupBatchSampler as JGroupBatchSampler
@@ -42,6 +43,7 @@ from arfe_tpu_torch.config import Config
 from arfe_tpu_torch.convert import params_to_state_dict
 from arfe_tpu_torch.data import (GroupBatchSampler, build_dataset,
                                  collate_train, synthetic)
+from arfe_tpu_torch.layers import init_weights
 from arfe_tpu_torch.models import build_detector
 from arfe_tpu_torch.tools import e2e_smoke
 from arfe_tpu_torch.tools import train as train_cli
@@ -258,8 +260,10 @@ def _port_run(setup, work_dir, threads=None, resume_from=None, epochs=2):
 
 @pytest.fixture(scope='module')
 def setup(tmp_path_factory):
-    """The set, the JAX init and the priorities, and the JAX package's loop:
-    each iteration's log values and the final parameters."""
+    """The set, the starting weights (the port's seeded ones, as a JAX
+    parameter tree: no JAX compilation) and the priorities, and the JAX
+    package's loop: each iteration's log values and the final
+    parameters."""
     root = str(tmp_path_factory.mktemp('loop'))
     synthetic.write_box_set(root, [(128, 160)] * 4, seed=1, categories=BOX)
     with open(os.path.join(root, 'cfg.py'), 'w') as f:
@@ -268,10 +272,10 @@ def setup(tmp_path_factory):
     jcfg = _tiny_cfg(JConfig, root, None).todict()
     jm = j_build_detector(jcfg['model'], train_cfg=jcfg['train_cfg'],
                           test_cfg=jcfg['test_cfg'])
-    params = jax.tree_util.tree_map(np.array, jax.jit(
-        jm.init, compiler_options=FAST_COMPILE)(jax.random.PRNGKey(0)))
     rng = np.random.RandomState(0)
     model = build_detector(jcfg['model'], train_cfg=jcfg['train_cfg'])
+    init_weights(model, torch.Generator().manual_seed(0))
+    params = state_dict_to_params(model.state_dict())
     n_anchors = num_anchors(model, 128, 160)
     n_cands = 100 + jcfg['train_cfg']['rpn_proposal']['nms_post']
     prio = [rng.uniform(size=n).astype(np.float32)
