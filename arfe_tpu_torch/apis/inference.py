@@ -80,10 +80,6 @@ def build_test_pipeline(cfg):
     return Compose(pipeline)
 
 
-def num_classes(model):
-    return model.roi_head.bbox_head.num_classes
-
-
 def detections_to_results(out, n_classes, ori_shapes=None):
     """``simple_test``'s outputs of a batch -> per image, ``n_classes``
     float32 arrays of shape (k, 5) [x1, y1, x2, y2, score]; for a mask
@@ -136,5 +132,5 @@ def inference_detector(model, img, dtype=torch.float32):
     out = model.simple_test(*batch_to_device(batch, device, dtype),
                             rescale=True)
     return detections_to_results(
-        out, num_classes(model),
+        out, model.num_classes,
         [m['ori_shape'] for m in batch['img_metas']])[0]

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from ..core.mask.rle import mask_to_rle
-from .inference import batch_to_device, detections_to_results, num_classes
+from .inference import batch_to_device, detections_to_results
 
 
 def encode_mask_results(mask_results):
@@ -40,7 +40,7 @@ def single_device_test(model, data_loader, show_progress=True,
     image's size and RLE-encoded batch by batch
     (:func:`encode_mask_results`)."""
     device = next(model.parameters()).device
-    n_classes = num_classes(model)
+    n_classes = model.num_classes
     results = []
     t0 = time.time()
     for batch in data_loader:

@@ -1,0 +1,7 @@
+# Cascade R-CNN R50 + AR-FPN (config #5b) with the COCO detection data
+# settings: the leaf config has no data section. Paths are relative to this
+# file.
+_base_ = [
+    '../../configs/arfe/cascade_rcnn_r50_arfpn_1x_coco.py',
+    '../../configs/_base_/datasets/coco_detection.py',
+]

@@ -1,5 +1,6 @@
 """Random sampling into fixed slots (counterpart of
-``arfe_tpu/core/bbox/samplers.py:17-110``).
+``arfe_tpu/core/bbox/samplers.py:17-110``), and the pseudo sampler that
+takes every candidate.
 
 Sampling without replacement ranks uniform random priorities: the k
 smallest finite priorities win, ties to the lower index (a stable sort, as
@@ -91,3 +92,23 @@ class BaseStaticSampler:
 @BBOX_SAMPLERS.register_module()
 class RandomSampler(BaseStaticSampler):
     """Uniformly random positives and negatives."""
+
+
+@BBOX_SAMPLERS.register_module()
+class PseudoSampler:
+    """Every candidate in its own slot, no subsampling (counterpart of
+    ``arfe_tpu/core/bbox/samplers.py:244-258``): positives are assigned > 0,
+    the valid slots assigned >= 0 (the ignored ones are not)."""
+
+    add_gt_as_proposals = False
+
+    def __init__(self, **kwargs):
+        pass
+
+    def sample(self, gen, assigned_gt_inds, **ctx):
+        """dict(inds (B, N), is_pos (B, N), valid (B, N)) of the (B, N)
+        assignment; ``gen`` is not drawn from."""
+        b, n = assigned_gt_inds.shape
+        inds = torch.arange(n, device=assigned_gt_inds.device).expand(b, n)
+        return dict(inds=inds, is_pos=assigned_gt_inds > 0,
+                    valid=assigned_gt_inds >= 0)

@@ -22,17 +22,13 @@ from ...core.bbox.coder import delta2bbox
 from ...layers import Conv2d
 from ...ops.nms import nms_batched
 from ...registry import HEADS
-from .anchor_head import AnchorHead
-
-
-def _stable_topk(x, k):
-    """The k largest of each row, ties in index order (jax.lax.top_k)."""
-    neg, idx = torch.sort(-x, dim=-1, stable=True)
-    return -neg[..., :k], idx[..., :k]
+from .anchor_head import AnchorHead, stable_topk
 
 
 @HEADS.register_module()
 class RPNHead(AnchorHead):
+    anchor_major = True
+
     def __init__(self, in_channels, **kwargs):
         super().__init__(1, in_channels, background_label=0, **kwargs)
 
@@ -115,7 +111,7 @@ class RPNHead(AnchorHead):
                 .reshape(num_a * hw, 4)).to(x.device)
             hwa = num_a * hw
             if 0 < nms_pre < hwa:
-                lg, idx = _stable_topk(logits, nms_pre)
+                lg, idx = stable_topk(logits, nms_pre)
                 prd = torch.gather(preds, 2, idx[:, None, :].expand(
                     b, 4, nms_pre)).transpose(1, 2)
                 anc = anchors[idx]
@@ -164,7 +160,7 @@ class RPNHead(AnchorHead):
         kept = kept.reshape(b, num_lvls * k_cap)
         kept_scores = torch.where(kept, dets[..., 4], float('-inf'))
         k_out = min(nms_post, num_lvls * k_cap)
-        top_vals, top_idx = _stable_topk(kept_scores, k_out)
+        top_vals, top_idx = stable_topk(kept_scores, k_out)
         dets = torch.gather(dets, 1, top_idx[..., None].expand(b, k_out, 5))
         out_valid = torch.isfinite(top_vals)
         pad_row = dets.new_tensor([0., 0., 0., 0., -1.])

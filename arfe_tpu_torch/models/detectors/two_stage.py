@@ -1,6 +1,8 @@
 """Two-stage detectors: inference and training losses (counterpart of
-``arfe_tpu/models/detectors/two_stage.py:11-121,155-161``): Faster R-CNN,
-and Mask R-CNN, whose RoI head has a mask branch."""
+``arfe_tpu/models/detectors/two_stage.py:11-121,155-161,170-172``): Faster
+R-CNN, Mask R-CNN, whose RoI head has a mask branch, and Cascade R-CNN,
+whose RoI head refines in stages (``train_cfg['rcnn']`` a list, one entry
+per stage)."""
 from __future__ import annotations
 
 import torch
@@ -28,6 +30,38 @@ class TwoStageDetector(nn.Module):
         self.roi_head = build_head(dict(
             roi_head, train_cfg=self.train_cfg.get('rcnn'),
             test_cfg=self.test_cfg.get('rcnn')))
+
+    # what the tools ask of a detector, whatever its family
+    @property
+    def dense_head(self):
+        """The head that holds the anchors."""
+        return self.rpn_head
+
+    @property
+    def num_classes(self):
+        return self.roi_head.num_classes
+
+    @property
+    def with_mask(self):
+        return self.roi_head.with_mask
+
+    @property
+    def with_multi_cls(self):
+        return self.roi_head.with_multi_cls
+
+    @property
+    def num_extractions(self):
+        """RoIAlign calls in one request, and in one step."""
+        return self.roi_head.num_extractions
+
+    @property
+    def roi_samplers(self):
+        """The RoI head's samplers, in stage order."""
+        return self.roi_head.stage_samplers
+
+    def classifiers(self):
+        """The layers that give the class logits."""
+        return self.roi_head.classifiers()
 
     def extract_feat(self, img):
         """NHWC images (B, H, W, 3) -> per-level NCHW features."""
@@ -65,7 +99,7 @@ class TwoStageDetector(nn.Module):
             shared=[s.detach() for s in shared])
         losses.update(self.roi_head.forward_train(
             x, props, prop_valid, gt_bboxes, gt_valid, gt_labels, gen,
-            gt_mask_crops=gt_mask_crops))
+            gt_mask_crops=gt_mask_crops, img_shapes=img_shapes))
         return losses
 
     @torch.inference_mode()
@@ -95,3 +129,8 @@ class FasterRCNN(TwoStageDetector):
 @DETECTORS.register_module()
 class MaskRCNN(TwoStageDetector):
     """ref: mmdet/models/detectors/mask_rcnn.py"""
+
+
+@DETECTORS.register_module()
+class CascadeRCNN(TwoStageDetector):
+    """ref: mmdet/models/detectors/cascade_rcnn.py"""

@@ -1,8 +1,9 @@
 """Two-stage bbox heads (counterpart of
-``arfe_tpu/models/roi_heads/bbox_heads/bbox_head.py:23-180,194-312``):
+``arfe_tpu/models/roi_heads/bbox_heads/bbox_head.py:23-191,194-312``):
 ``BBoxHead``, ``ConvFCBBoxHead`` and ``Shared2FCBBoxHead``, with the
-training targets and losses. RoI features are flattened in torch's
-(C, H, W) order, so FC weights are the reference's.
+training targets and losses and the cascade's refinement decode. RoI
+features are flattened in torch's (C, H, W) order, so FC weights are the
+reference's.
 """
 from __future__ import annotations
 
@@ -99,6 +100,28 @@ class BBoxHead(nn.Module):
                               cfg['max_per_img'],
                               pre_nms_cap=cfg.get('nms_cap', 2000),
                               valid_mask=valid_mask)
+
+    def decoded_boxes_for_refine(self, rois, cls_score, bbox_pred,
+                                 img_shapes=None):
+        """Each RoI regressed by its predicted class (the argmax of the
+        foreground scores), or by the class-agnostic prediction: the next
+        cascade stage's boxes (ref: bbox_head.py:245-323,
+        ``regress_by_class``).
+
+        Args:
+            rois: (B, S, 4); cls_score (B, S, num_classes + 1); bbox_pred
+                (B, S, 4) or (B, S, 4 * num_classes).
+            img_shapes: optional (B, 2) (h, w) to clamp to.
+        Returns:
+            (B, S, 4) f32 boxes.
+        """
+        bbox_pred = bbox_pred.float()
+        if not self.reg_class_agnostic:
+            labels = cls_score[..., :-1].argmax(dim=-1, keepdim=True)
+            inds = 4 * labels + torch.arange(4, device=labels.device)
+            bbox_pred = torch.gather(bbox_pred, -1, inds)
+        return self.bbox_coder.decode(rois.float(), bbox_pred,
+                                      max_shape=img_shapes)
 
     def get_targets(self, sampled_boxes, sampled_gt_boxes, sampled_labels,
                     is_pos, valid, pos_weight=-1):

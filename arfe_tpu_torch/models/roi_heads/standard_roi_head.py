@@ -41,6 +41,45 @@ def _rows(table, inds):
                  inds]
 
 
+def boxes_to_rois(boxes):
+    """(B, S, 4) boxes -> (B * S, 5) RoIs, each with its image's index."""
+    b, s = boxes.shape[:2]
+    batch_inds = torch.arange(b, dtype=boxes.dtype,
+                              device=boxes.device)[:, None, None]
+    return torch.cat([batch_inds.expand(b, s, 1), boxes],
+                     dim=-1).reshape(b * s, 5)
+
+
+def assign_candidates(assigner, sampler, proposals, prop_valid, gt_bboxes,
+                      gt_valid):
+    """The candidates of each image, gts first when the sampler adds them
+    (padded gts are invalid candidates), and their assignment: (boxes
+    (B, N, 4), assigned_gt_inds (B, N), max_overlaps (B, N))."""
+    if sampler.add_gt_as_proposals:
+        boxes = torch.cat([gt_bboxes.float(), proposals[..., :4]], dim=1)
+        box_valid = torch.cat([gt_valid, prop_valid], dim=1)
+    else:
+        boxes, box_valid = proposals[..., :4], prop_valid
+    assign = assigner.assign(boxes, gt_bboxes, gt_valid, box_valid=box_valid)
+    return boxes, assign['assigned_gt_inds'], assign['max_overlaps']
+
+
+def sample_candidates(sampler, gen, boxes, assigned, max_overlaps, gt_bboxes,
+                      gt_labels):
+    """Each image's candidates sampled into the sampler's slots, positives
+    first: the slots' candidate indices, boxes, matched gt indices, boxes
+    and labels, and their is_pos / valid masks, all (B, S, ...)."""
+    sample = sampler.sample(gen, assigned, max_overlaps=max_overlaps,
+                            num_gts=gt_bboxes.shape[1])
+    inds = sample['inds']
+    safe_gt = torch.clamp(_rows(assigned, inds) - 1, 0,
+                          gt_bboxes.shape[1] - 1)
+    return dict(inds=inds, boxes=_rows(boxes, inds),
+                gt_boxes=_rows(gt_bboxes.float(), safe_gt), gt_inds=safe_gt,
+                labels=_rows(gt_labels.long(), safe_gt),
+                is_pos=sample['is_pos'], valid=sample['valid'])
+
+
 @HEADS.register_module()
 class StandardRoIHead(nn.Module):
     def __init__(self, bbox_roi_extractor, bbox_head, mask_roi_extractor=None,
@@ -66,7 +105,28 @@ class StandardRoIHead(nn.Module):
         if train_cfg is not None:
             self.assigner = build_from_cfg(train_cfg['assigner'],
                                            BBOX_ASSIGNERS)
-            self.sampler = build_from_cfg(train_cfg['sampler'], BBOX_SAMPLERS)
+            # a config without a sampler takes the assignment as it is
+            self.sampler = build_from_cfg(
+                train_cfg.get('sampler', dict(type='PseudoSampler')),
+                BBOX_SAMPLERS)
+
+    @property
+    def num_classes(self):
+        return self.bbox_head.num_classes
+
+    @property
+    def num_extractions(self):
+        """RoIAlign calls in one request, and in one step: the boxes', and
+        the mask branch's."""
+        return 1 + self.with_mask
+
+    @property
+    def stage_samplers(self):
+        return [self.sampler]
+
+    def classifiers(self):
+        """The layers that give the class logits."""
+        return [self.bbox_head.fc_cls]
 
     def _bbox_forward(self, feats, rois, num_imgs=1):
         """The head's outputs for (R, 5) RoIs of ``num_imgs`` images:
@@ -90,36 +150,13 @@ class StandardRoIHead(nn.Module):
     # ------------------------------------------------------------------
 
     def _assign(self, proposals, prop_valid, gt_bboxes, gt_valid):
-        """The candidates of each image, gts first when the sampler adds
-        them (padded gts are invalid candidates), and their assignment:
-        (boxes (B, N, 4), assigned_gt_inds (B, N), max_overlaps (B, N))."""
-        if self.sampler.add_gt_as_proposals:
-            boxes = torch.cat([gt_bboxes.float(), proposals[..., :4]], dim=1)
-            box_valid = torch.cat([gt_valid, prop_valid], dim=1)
-        else:
-            boxes, box_valid = proposals[..., :4], prop_valid
-        assign = self.assigner.assign(boxes, gt_bboxes, gt_valid,
-                                      box_valid=box_valid)
-        return boxes, assign['assigned_gt_inds'], assign['max_overlaps']
-
-    def _sample(self, gen, boxes, assigned, max_overlaps, gt_bboxes,
-                gt_labels):
-        """Each image's candidates sampled into ``num`` slots, positives
-        first: the slots' boxes, matched gt boxes and gt labels, and their
-        is_pos / valid masks, all (B, num, ...)."""
-        sample = self.sampler.sample(gen, assigned, max_overlaps=max_overlaps,
-                                     num_gts=gt_bboxes.shape[1])
-        inds = sample['inds']
-        safe_gt = torch.clamp(_rows(assigned, inds) - 1, 0,
-                              gt_bboxes.shape[1] - 1)
-        return dict(boxes=_rows(boxes, inds),
-                    gt_boxes=_rows(gt_bboxes.float(), safe_gt),
-                    gt_inds=safe_gt,
-                    labels=_rows(gt_labels.long(), safe_gt),
-                    is_pos=sample['is_pos'], valid=sample['valid'])
+        """``assign_candidates`` with this head's assigner and sampler."""
+        return assign_candidates(self.assigner, self.sampler, proposals,
+                                 prop_valid, gt_bboxes, gt_valid)
 
     def forward_train(self, feats, proposals, prop_valid, gt_bboxes,
-                      gt_valid, gt_labels, gen, gt_mask_crops=None):
+                      gt_valid, gt_labels, gen, gt_mask_crops=None,
+                      img_shapes=None):
         """Bbox (and mask) losses of a batch.
 
         Args:
@@ -129,6 +166,8 @@ class StandardRoIHead(nn.Module):
             gen: the ``torch.Generator`` of the sampler's priorities.
             gt_mask_crops: (B, G, cs, cs) each gt's mask cut to its box
                 (``BitmapMasks.to_fixed_crops``); required with a mask head.
+            img_shapes: (B, 2), unused here (the cascade head clamps its
+                refined boxes to them).
         Returns:
             dict of ``loss_cls``, ``acc`` and ``loss_bbox``, and
             ``loss_multi_cls`` for a "+fac" head, ``loss_mask`` with a mask
@@ -136,15 +175,12 @@ class StandardRoIHead(nn.Module):
         """
         boxes, assigned, max_overlaps = self._assign(proposals, prop_valid,
                                                      gt_bboxes, gt_valid)
-        sampled = self._sample(gen, boxes, assigned, max_overlaps, gt_bboxes,
-                               gt_labels)
+        sampled = sample_candidates(self.sampler, gen, boxes, assigned,
+                                    max_overlaps, gt_bboxes, gt_labels)
         boxes = sampled['boxes']
-        b, s = boxes.shape[:2]
+        b = boxes.shape[0]
         # every slot is extracted, invalid ones too: their loss weight is 0
-        batch_inds = torch.arange(b, dtype=boxes.dtype,
-                                  device=boxes.device)[:, None, None]
-        rois = torch.cat([batch_inds.expand(b, s, 1), boxes],
-                         dim=-1).reshape(b * s, 5)
+        rois = boxes_to_rois(boxes)
         out = self._bbox_forward(feats, rois, num_imgs=b)
         labels, label_weights, bbox_targets, bbox_weights = \
             self.bbox_head.get_targets(
@@ -202,12 +238,8 @@ class StandardRoIHead(nn.Module):
         and their (B, P) validity."""
         cfg = self.test_cfg if cfg is None else cfg
         b, p, _ = proposals.shape
-        batch_inds = torch.arange(b, dtype=proposals.dtype,
-                                  device=proposals.device)[:, None, None]
-        rois = torch.cat([batch_inds.expand(b, p, 1), proposals[..., :4]],
-                         dim=-1).reshape(b * p, 5)
-        cls_score, bbox_pred = self._bbox_forward(feats, rois,
-                                                  num_imgs=b)[:2]
+        cls_score, bbox_pred = self._bbox_forward(
+            feats, boxes_to_rois(proposals[..., :4]), num_imgs=b)[:2]
         cls_score = cls_score.reshape(b, p, -1)
         if bbox_pred is not None:
             bbox_pred = bbox_pred.reshape(b, p, -1)
@@ -239,13 +271,9 @@ class StandardRoIHead(nn.Module):
         boxes = dets[..., :4]
         if rescale:
             boxes = boxes * scale_factors[:, None, :4]
-        batch_inds = torch.arange(b, dtype=boxes.dtype,
-                                  device=boxes.device)[:, None, None]
-        rois = torch.cat([batch_inds.expand(b, n, 1), boxes],
-                         dim=-1).reshape(b * n, 5)
         extractor = self.mask_roi_extractor
         mask_pred = self.mask_head(extractor(feats[:extractor.num_inputs],
-                                             rois))
+                                             boxes_to_rois(boxes)))
         mh, mw = mask_pred.shape[1:3]
         mask_pred = mask_pred.reshape(b, n, mh, mw, -1)
         index = labels.long()[:, :, None, None, None].expand(b, n, mh, mw, 1)

@@ -6,12 +6,16 @@ Serves a detector (by default the flagship Faster R-CNN R50 + AR-FPN,
 ``configs/_base_/models/faster_rcnn_r50_arfpn.py``; the AR-RFF flagship is
 ``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``, Mask R-CNN
 ``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``, whose RoI head stage holds
-its mask branch) at 800x1344 in bf16
+its mask branch, Cascade R-CNN ``configs/arfe/cascade_rcnn_r50_arfpn_1x_coco.
+py``, whose RoI head stage holds its three stages, RetinaNet
+``configs/arfe/retinanet_r50_arfpn_1x_coco.py``) at 800x1344 in bf16
 with seeded random weights (as ``chip_smoke.py`` does) and prints, over five
 requests after two warm-up requests:
 
 - the wall time per request and of its stages (backbone + necks, RPN
-  proposals, RoI head), each closed by a device synchronisation;
+  proposals, RoI head; for a single-stage detector backbone + necks, the
+  dense head's convs, its decode and NMS), each closed by a device
+  synchronisation;
 - the device's busy time per request and its idle share, from
   ``torch.profiler`` (the union of the kernels' intervals);
 - the kernels that take the most device time.
@@ -52,6 +56,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('profile_serve: no CUDA device')
     from arfe_tpu_torch.apis import init_detector
+    from arfe_tpu_torch.models.detectors import TwoStageDetector
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -63,6 +68,8 @@ def main():
            * 0.2).to(torch.bfloat16)
     shapes = torch.tensor([[800.0, 1333.0]] * b, device='cuda')
     scales = torch.ones((b, 4), device='cuda')
+
+    two_stage = isinstance(model, TwoStageDetector)
 
     def staged():
         """One request, stage by stage; returns each stage's wall ms."""
@@ -76,9 +83,14 @@ def main():
         times = []
         with torch.inference_mode():
             feats = timed(model.extract_feat, img)
-            props = timed(model.rpn_head.get_proposals, feats, shapes)
-            timed(model.roi_head.simple_test, feats, *props, shapes, scales,
-                  rescale=True)
+            if two_stage:
+                props = timed(model.rpn_head.get_proposals, feats, shapes)
+                timed(model.roi_head.simple_test, feats, *props, shapes,
+                      scales, rescale=True)
+            else:
+                outs = timed(model.dense_head, feats)
+                timed(model.dense_head.get_bboxes, *outs, shapes, scales,
+                      rescale=True)
         return times
 
     for _ in range(2):
@@ -97,7 +109,8 @@ def main():
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us(kernels)
     n = ITERS
-    names = ('backbone + necks', 'rpn proposals', 'roi head')
+    names = ('backbone + necks', 'rpn proposals', 'roi head') if two_stage \
+        else ('backbone + necks', 'dense head', 'decode + nms')
     for i, name in enumerate(names):
         ms = sorted(s[i] for s in stage_ms)[n // 2]
         print(f'stage {name}: median {ms:.2f} ms wall')

@@ -5,7 +5,9 @@
 
 Trains a detector (by default the flagship Faster R-CNN R50 + AR-FPN; the
 AR-RFF flagship is ``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``,
-Mask R-CNN ``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``)
+Mask R-CNN ``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``, Cascade R-CNN
+``configs/arfe/cascade_rcnn_r50_arfpn_1x_coco.py``, RetinaNet
+``configs/arfe/retinanet_r50_arfpn_1x_coco.py``)
 at 800x1344 in bf16 (or f32: ``--dtype f32``) with seeded random weights,
 the bench's synthetic batch (8 gt boxes of 30-80 px per image, and random
 28 x 28 gt mask crops for a mask head, ``bench.py:170-188``) and its SGD
@@ -49,8 +51,7 @@ def main():
     b = args.batch
     batch = bench.synthetic_batch(b, dtype=torch.bfloat16
                                   if args.dtype == 'bf16' else torch.float32,
-                                  masks=getattr(model.roi_head, 'with_mask',
-                                                False))
+                                  masks=model.with_mask)
 
     def forward():
         return parse_losses(model.forward_train(

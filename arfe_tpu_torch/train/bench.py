@@ -35,6 +35,11 @@ ARFE_CFGS = {name: os.path.join(_CONFIGS, 'arfe',
              for name in ('arrff', 'fac')}
 #: Mask R-CNN R50 + AR-FPN (config #5a)
 MASK_CFG = os.path.join(_CONFIGS, 'arfe', 'mask_rcnn_r50_arfpn_1x_coco.py')
+#: Cascade R-CNN R50 + AR-FPN (config #5b) and RetinaNet R50 + AR-FPN
+#: (config #2)
+CASCADE_CFG = os.path.join(_CONFIGS, 'arfe',
+                           'cascade_rcnn_r50_arfpn_1x_coco.py')
+RETINA_CFG = os.path.join(_CONFIGS, 'arfe', 'retinanet_r50_arfpn_1x_coco.py')
 H, W = 800, 1344             # the bench's padded image (bench.py:28)
 IMG_SHAPE = (800.0, 1333.0)  # its content shape (bench.py:90)
 BATCH_KEYS = ('img', 'img_shape', 'gt_bboxes', 'gt_valid', 'gt_labels')
@@ -101,27 +106,42 @@ def build_trainer(cfg=FLAGSHIP_CFG, device='cuda', seed=1):
 
 
 def num_anchors(model, h, w):
-    """Anchors of the RPN's table for an (h, w) image."""
-    gen = model.rpn_head.anchor_generator
+    """Anchors of the dense head's table for an (h, w) image."""
+    gen = model.dense_head.anchor_generator
     return sum(n * -(-h // s[1]) * -(-w // s[0])
                for s, n in zip(gen.strides, gen.num_base_anchors))
 
 
+def sampled_candidates(model, num_gts, h, w):
+    """Each sampler that draws, with the candidates it draws among: the
+    dense head's over its anchors (none for a pseudo sampler), then each
+    RoI head stage's over its gts (when it adds them) and proposals, or a
+    cascade's later stage's over its gts and the previous stage's
+    samples."""
+    head = model.dense_head
+    out = [(head.sampler, num_anchors(model, h, w))] if head.sampling \
+        else []
+    if model.roi_samplers:
+        n = model.train_cfg['rpn_proposal']['nms_post']
+        for sampler in model.roi_samplers:
+            out.append((sampler, n + num_gts * sampler.add_gt_as_proposals))
+            n = getattr(sampler, 'num', out[-1][1])
+    return out
+
+
 def fix_priorities(model, num_gts, h, w, seed=5):
     """The same sampling priorities on every model: uniform draws from a
-    seeded CPU generator for the RPN's anchors and the RoI head's candidates
-    (gts + proposals), ``inf`` where a box is not a candidate."""
+    seeded CPU generator for each sampler's candidates
+    (:func:`sampled_candidates`), ``inf`` where a box is not a candidate."""
     gen = torch.Generator().manual_seed(seed)
-    num_props = model.train_cfg['rpn_proposal']['nms_post']
-    for head, n in ((model.rpn_head, num_anchors(model, h, w)),
-                    (model.roi_head, num_gts + num_props)):
+    for sampler, n in sampled_candidates(model, num_gts, h, w):
         pos, neg = (torch.rand(n, generator=gen) for _ in range(2))
 
         def fixed(p):
             return lambda g, cand, ctx: torch.where(
                 cand, p.to(cand.device), float('inf'))
-        head.sampler._pos_priority = fixed(pos)
-        head.sampler._neg_priority = fixed(neg)
+        sampler._pos_priority = fixed(pos)
+        sampler._neg_priority = fixed(neg)
 
 
 def loss_and_grads(model, batch, seed=5):

@@ -109,6 +109,47 @@
     truth seeded from the CPU's detections and masks, every detection
     matched one for one (phase 13's classifier spread, ``score_thr=0``).
     Prints the host paste's time per image.
+18. Serves Cascade R-CNN + AR-FPN (config #5b,
+    ``configs/arfe/cascade_rcnn_r50_arfpn_1x_coco.py``) at full width: two
+    bs1 and one bs2 request in bf16 and one bs1 in f32. Each request
+    launches A once and B exactly three times (one per stage: the RPN's
+    proposals, then the boxes each stage regressed); then the card against
+    the CPU as in 4.
+19. Holds kernel B against its plain version on each stage's RoIs, levels
+    and features of the first bs1 and bs2 requests (R = 1000, 2000 a
+    stage), bf16 and f32, bit for bit, and times both beside the bound.
+20. Trains Cascade R-CNN at full width, bs2: two bf16 steps and one f32.
+    Each step launches A once, B and C three times; the frozen stem and
+    layer1 stay; stages 1 and 2's shared FCs and classifiers move. Holds
+    kernel C against its plain version on each stage's cotangent and RoIs
+    of the first step (R = 1024 a stage, 1e-5) and times it, then a
+    training step against the CPU as in 6 (every stage's losses).
+21. Trains Cascade R-CNN through the train CLI (the port config
+    ``arfe_tpu_torch/configs/cascade_rcnn_r50_arfpn_1x_coco.py``: one epoch
+    of 4 iterations, bs2 bf16, 8 box PNGs under ``build/cascade_coco``) and
+    runs the test CLI on ``latest.pth`` with ``--eval bbox``: A once, B and
+    C three times per iteration; A once and B three times per evaluated
+    image; the six stats; the card's f32 stats within 1e-3 of the CPU's
+    plain path at (667, 400), every detection matched (phase 13's rule).
+22. Serves RetinaNet + AR-FPN (config #2,
+    ``configs/arfe/retinanet_r50_arfpn_1x_coco.py``): the requests of 18;
+    each launches A once and B never; then the card against the CPU as in
+    4, the classifier's weights scaled (``CLS_SCALE``).
+23. Holds kernel A against its plain version on the NonLocal refine level
+    of the first bs1 and bs2 requests (N = 25 x 42 = 1050 tokens, the
+    stride-32 level of five from stride 8), bf16 and f32 (and f64), with the
+    split count ``key_splits`` picks and a forced one that leaves splits
+    without keys, and times it beside its bound, the plain version and
+    SDPA.
+24. Trains RetinaNet at full width, bs2: two bf16 steps and one f32 (the
+    focal loss over all 201,600 anchors an image). Each step launches A
+    once and neither B nor C; the head's last convs and its classifier
+    move; then a training step against the CPU as in 6.
+25. Trains and evaluates RetinaNet through the CLIs as 21 (the port config
+    ``arfe_tpu_torch/configs/retinanet_r50_arfpn_1x_coco.py``, ``build/
+    retina_coco``): A once per iteration and per image, no B or C; the card
+    against the CPU with the 0.05 threshold kept and the classifier's
+    weights scaled up until each image has 10 detections.
 
 Prints each phase's wall seconds and the total, one JSON line of kernel
 numbers (``launches`` counts the flagship's training run,
@@ -116,8 +157,11 @@ numbers (``launches`` counts the flagship's training run,
 those of AR-RFF and "+fac", ``launches_arrff_eval`` the two timed
 evaluation runs, ``launches_arrff_trainrun`` the two training runs of
 phase 13 with its validation, ``launches_mask_{serve,train,eval}`` those of
-phases 14, 16 and 17's test CLI; the ``_arrff_r*`` keys are kernels B and C
-at AR-RFF's shapes, the ``_mask_r*`` keys B and C at 14 x 14 bins, the
+phases 14, 16 and 17's test CLI, ``launches_{cascade,retina}_{serve,train,
+eval}`` those of phases 18, 20, 21 and 22, 24, 25; the ``_arrff_r*`` keys
+are kernels B and C at AR-RFF's shapes, the ``_mask_r*`` keys B and C at 14
+x 14 bins, the ``_cascade_s{i}_r*`` keys B and C on cascade stage i's
+inputs, the ``_retina_n1050*`` keys A at RetinaNet's refine level, the
 ``_eval_*`` keys A and B on a real image's arguments, the ``train_run_*``
 keys phase 13's numbers, ``mask_paste_ms_per_image`` phase 17's), then the
 card's name and power limit, and as the last line ``{"ok": true, "device":
@@ -629,9 +673,9 @@ def check_kernels():
 def build_detector(cfg=FLAGSHIP_CFG, cls_scale=None):
     """A detector on the card with seeded random weights; the NonLocal
     ``conv_out`` (zero at init) is made nonzero so the attention reaches the
-    outputs. With ``cls_scale`` the classifier is scaled by it, and
-    ``conv_out`` is drawn on the CPU, so that the weights do not depend on
-    the device's generator."""
+    outputs. With ``cls_scale`` the weights of ``model.classifiers()`` are
+    scaled by it, their biases kept, and ``conv_out`` is drawn on the CPU,
+    so that the weights do not depend on the device's generator."""
     from arfe_tpu_torch.apis import init_detector
     t0 = time.time()
     model = init_detector(cfg)
@@ -641,7 +685,8 @@ def build_detector(cfg=FLAGSHIP_CFG, cls_scale=None):
         w = model.neck[1].refine.conv_out.conv.weight
         w.copy_(torch.randn(w.shape, generator=gen, device=dev) * 0.01)
         if cls_scale is not None:
-            model.roi_head.bbox_head.fc_cls.weight.mul_(cls_scale)
+            for layer in model.classifiers():
+                layer.weight.mul_(cls_scale)
     torch.cuda.synchronize()
     print(f'init_detector: {time.time() - t0:.1f} s, '
           f'{sum(p.numel() for p in model.parameters())} parameters')
@@ -653,26 +698,40 @@ def serve(model, requests):
     bench.py:221 feeds them; the first request of a shape or dtype also
     pays one-time set-up, such as cuDNN's algorithm choice, so each comes
     twice). Returns the kernel launches of the run, whether every request
-    launched kernel A once and kernel B exactly once (one extraction of all
-    its RoIs; a Mask R-CNN twice: its boxes' 7 x 7 and its detections' 14
-    x 14 bins) and gave finite detections (and mask logits) of the
-    contract's shape, and kernel B's arguments in the first request of each
-    (batch, dtype), at 14 x 14 bins under (batch, dtype, 14)."""
+    launched kernel A once and kernel B exactly ``model.num_extractions``
+    times (one extraction of all its RoIs per RoI head stage: a cascade's
+    three, a Mask R-CNN's boxes' 7 x 7 and its detections' 14 x 14 bins, a
+    single-stage detector none) and gave finite detections (and mask
+    logits) of the contract's shape, and the kernels' arguments in the
+    first request of each (batch, dtype): A's under (batch, dtype, 'a'),
+    B's under (batch, dtype), and for each 7 x 7 stage under (batch, dtype,
+    'stage', i), at 14 x 14 bins under (batch, dtype, 14)."""
     from arfe_tpu_torch.ops import fused_attention as fa
     from arfe_tpu_torch.ops import roi_align as ra
-    kernel_b, args = ra.roi_align_cuda, {}
+    kernel_a, kernel_b, args = fa.fused_attention_cuda, ra.roi_align_cuda, {}
     gen = torch.Generator(device='cuda').manual_seed(2)
     ok = True
-    with_mask = getattr(model.roi_head, 'with_mask', False)
+    with_mask, n_b = model.with_mask, model.num_extractions
     fa.launches = ra.launches = 0
     for i, (b, dt) in enumerate(requests):
+        stage = [0]
+
+        def keep_a(q, k, v, *rest, key=(b, dt, 'a')):
+            args.setdefault(key, (q.clone(), k.clone(), v.clone()))
+            return kernel_a(q, k, v, *rest)
+
         def keep_args(feats, rois, lvls, out_size=(7, 7), *rest, key=(b, dt),
                       **kwargs):
-            args.setdefault(key if tuple(out_size) == (7, 7)
-                            else key + (out_size[0],),
-                            (feats, rois.clone(), lvls.clone()))
+            if tuple(out_size) == (7, 7):
+                args.setdefault(key + ('stage', stage[0]),
+                                (feats, rois.clone(), lvls.clone()))
+                args.setdefault(key, args[key + ('stage', stage[0])])
+                stage[0] += 1
+            else:
+                args.setdefault(key + (out_size[0],),
+                                (feats, rois.clone(), lvls.clone()))
             return kernel_b(feats, rois, lvls, out_size, *rest, **kwargs)
-        ra.roi_align_cuda = keep_args
+        fa.fused_attention_cuda, ra.roi_align_cuda = keep_a, keep_args
         img = (torch.randn((b, H, W, 3), generator=gen, device='cuda')
                * 0.2).to(dt)
         shapes = torch.tensor([IMG_SHAPE] * b, device='cuda')
@@ -684,14 +743,16 @@ def serve(model, requests):
             out = model.simple_test(img, shapes, scales, rescale=True)
             torch.cuda.synchronize()
         finally:
-            ra.roi_align_cuda = kernel_b
+            fa.fused_attention_cuda, ra.roi_align_cuda = kernel_a, kernel_b
         ms = (time.perf_counter() - t0) * 1e3
         dets, labels, valid = out[:3]
         da, dr = fa.launches - a0, ra.launches - r0
         good = (dets.shape == (b, 100, 5) and labels.shape == (b, 100)
                 and bool(torch.isfinite(dets).all()) and da == 1
-                and dr == 1 + with_mask and len(out) == 3 + with_mask)
-        rois = f'{args[b, dt][1].shape[0]} RoIs'
+                and dr == n_b and len(out) == 3 + with_mask)
+        rois = ' + '.join(f'{args[b, dt, "stage", j][1].shape[0]}'
+                          for j in range(stage[0])) + ' RoIs' \
+            if (b, dt) in args else 'no RoIs'
         if with_mask:
             good = good and out[3].shape == (b, 100, 28, 28) \
                 and bool(torch.isfinite(out[3]).all())
@@ -782,10 +843,13 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
     of ``dtypes`` (with the bench's random mask crops for a mask head).
     Returns the model, its parameters before the first step, the kernel
     launches of the run, kernel C's arguments in the first step by bin
-    count (``{7: [...]}``, and ``14`` for the mask branch's), and whether
-    every step gave finite losses (a "+fac" head's ``loss_multi_cls`` and a
-    mask head's ``loss_mask`` among them) and launched kernels A, B and C
-    once each (B and C twice with a mask head), the frozen parameters
+    count (``{7: [...]}``, and ``14`` for the mask branch's; the first
+    launch of each) and in the order of its launches (under ``'all'``),
+    and whether every step gave finite losses (a "+fac" head's
+    ``loss_multi_cls`` and a mask head's ``loss_mask`` among them) and
+    launched kernel A once and B and C ``model.num_extractions`` times each
+    (once, twice with a mask head, three times in a cascade, never in a
+    single-stage detector), the frozen parameters
     stayed without a gradient, every trainable tensor moved whose gradient
     was, in some step, large enough for the step to move it in f32 (the
     others are named: those with a gradient exactly 0 in every step, and
@@ -798,7 +862,7 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
     t0 = time.time()
     model, opt, scheduler, frozen = bench.build_trainer(cfg)
     step = make_train_step(model, opt, scheduler)
-    with_mask = getattr(model.roi_head, 'with_mask', False)
+    with_mask, n_b = model.with_mask, model.num_extractions
     batches = {dt: bench.synthetic_batch(2, dtype=dt, masks=with_mask)
                for dt in set(dtypes)}
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
@@ -813,9 +877,9 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
     p_max = torch.stack([before[k].abs().max() for k in trainable])
     torch.cuda.synchronize()
     print(f'build_trainer: {time.time() - t0:.1f} s, frozen {frozen}')
-    # the RPN's sampled anchors at the coarsest level (stride 64, last in
-    # the anchor table), the only ones whose loss reaches that level
-    rpn = model.rpn_head
+    # the dense head's weighted anchors at the coarsest level (last in the
+    # anchor table), the only ones whose loss reaches that level
+    rpn = model.dense_head
     top_stride = rpn.anchor_generator.strides[-1]
     n_top = rpn.num_anchors * -(-H // top_stride[1]) * -(-W // top_stride[0])
     targets, sampled = rpn._targets, {}
@@ -825,18 +889,27 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
         sampled['weights'] = out[1]
         return out
     rpn._targets = keep_weights
-    # kernel C's cotangent, RoIs and levels in the first step, for timing
-    kernel_c, step_args = ra.roi_align_backward_cuda, {}
+    # kernel C's cotangent, RoIs and levels in the first step, for timing,
+    # and the RoIs of that step's B launches, in the forward's order
+    kernel_b, kernel_c = ra.roi_align_cuda, ra.roi_align_backward_cuda
+    step_args, fwd_rois = {'all': []}, []
+
+    def keep_rois(feats, rois, *args, **kwargs):
+        if ra.launches < n_b:
+            fwd_rois.append(rois.clone())
+        return kernel_b(feats, rois, *args, **kwargs)
 
     def keep_args(g, rois, lvls, shapes, *args, **kwargs):
-        if g.shape[1] not in step_args:
-            step_args[g.shape[1]] = [g.clone(), rois.clone(), lvls.clone(),
-                                     [tuple(s) for s in shapes]]
+        if ra.bwd_launches < n_b:
+            step_args['all'].append([g.clone(), rois.clone(), lvls.clone(),
+                                     [tuple(s) for s in shapes]])
+            step_args.setdefault(g.shape[1], step_args['all'][-1])
         return kernel_c(g, rois, lvls, shapes, *args, **kwargs)
-    ra.roi_align_backward_cuda = keep_args
+    ra.roi_align_cuda, ra.roi_align_backward_cuda = keep_rois, keep_args
     gen = torch.Generator(device='cuda').manual_seed(4)
     ok = True
     fa.launches = ra.launches = ra.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
     try:
         for i, dt in enumerate(dtypes):
             counts = (fa.launches, ra.launches, ra.bwd_launches)
@@ -860,24 +933,34 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
             movable = {k: movable[k] or b for k, b in zip(trainable, big)}
             top = (sampled['weights'][:, -n_top:] > 0).sum(-1).tolist()
             good = all(np.isfinite(v) for v in logs.values()) \
-                and grew == [1, 1 + with_mask, 1 + with_mask] \
+                and grew == [1, n_b, n_b] \
                 and ('loss_multi_cls' in logs
-                     or not model.roi_head.with_multi_cls) \
+                     or not model.with_multi_cls) \
                 and ('loss_mask' in logs) == with_mask
             ok = ok and good
-            rois = ' and '.join(f'{a[1].shape[0]} RoIs at {n} x {n}'
-                                for n, a in sorted(step_args.items()))
+            rois = ' and '.join(f'{a[1].shape[0]} RoIs at {a[0].shape[1]} x '
+                                f'{a[0].shape[1]}' for a in step_args['all'])
             print(f'train step {i}: bs2 {str(dt)[6:]} {ms:.2f} ms, '
                   + ', '.join(f'{k} {v:.5f}' for k, v in logs.items())
                   + f', launches attention {grew[0]} roi_align {grew[1]} '
-                  f'roi_align_bwd {grew[2]} (over {rois}), RPN anchors '
-                  f'sampled at stride {top_stride[0]} '
+                  f'roi_align_bwd {grew[2]} (over {rois or "no RoIs"}), '
+                  f'anchors weighted at stride {top_stride[0]} '
                   f'{top} {"ok" if good else "FAIL"}')
     finally:
         del rpn._targets
-        ra.roi_align_backward_cuda = kernel_c
+        ra.roi_align_cuda, ra.roi_align_backward_cuda = kernel_b, kernel_c
+    # the backward runs in autograd's order, not the forward's: each C
+    # launch's forward B launch (a cascade's stage), found by its RoIs
+    step_args['forward_index'] = [
+        [j for j, r in enumerate(fwd_rois) if torch.equal(r, a[1])]
+        for a in step_args['all']]
+    print(f"kernel C's launches of the first step against its B launches "
+          f"(forward order): {step_args['forward_index']}")
+    del fwd_rois
     launches = {'fused_attention': fa.launches, 'roi_align': ra.launches,
                 'roi_align_bwd': ra.bwd_launches}
+    print(f'train peak device memory over the steps '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
     frozen_moved = [k for k in before if k not in had_grad and (
         not torch.equal(params[k], before[k]) or params[k].grad is not None)]
     no_grad = [k for k in trainable if params[k].grad is None
@@ -961,8 +1044,7 @@ def train_reference_check(model, start, cfg=FLAGSHIP_CFG, readings=True):
     cpu.load_state_dict(model.state_dict())
     batch = bench.synthetic_batch(2, h, w, (float(h), float(w)),
                                   torch.float32, seed=6, device='cpu',
-                                  masks=getattr(model.roi_head, 'with_mask',
-                                                False))
+                                  masks=model.with_mask)
     r = bench.compare_with_cpu(model, cpu, batch)
     print(f'train reference (CPU plain path, starting weights, 2x{h}x{w} '
           f'f32, {r["cpu_s"]:.1f} '
@@ -1015,10 +1097,16 @@ def level_error_readings(model, batch, r, scale=1.03):
 # classifiers are scaled so that the scores spread below the cut (at
 # 320x480 on the CPU: 29 and 18 detections score >= 0.1, the 100th 0.075
 # and 0.082).
-CLS_SCALE = {'arrff': 0.1, 'fac': 0.006, 'mask': 1.0}
+CLS_SCALE = {'arrff': 0.1, 'fac': 0.006, 'mask': 1.0, 'cascade': 2.0,
+             'retina': 7.0}
 # Mask R-CNN's classifier is the flagship's and does not saturate (at
 # 320x480: 19 detections score >= 0.1, the 100th 0.067); its entry draws
-# conv_out on the CPU, as the others do
+# conv_out on the CPU, as the others do. Cascade R-CNN averages its three
+# stages' logits, which spread less (at 2: 26 detections score >= 0.1, the
+# 100th 0.068). RetinaNet's entry scales the classifier's weights, its bias
+# (the prior 0.01) kept: at random weights every score sits at the prior,
+# under the 0.05 threshold (at 7: 11 detections score >= 0.1, the 100th
+# 0.075)
 
 
 def _roi_census(rois, lvls, what):
@@ -1680,20 +1768,22 @@ def _moved_check(log, first, second, frozen_prefixes):
 SPREAD_SCALES = (1.0, 0.3, 0.1, 0.03, 0.01, 0.003, 0.001)
 
 
-def _spread_classifier(model, cfg):
-    """Scales the card model's classifier (weight and bias, so every logit)
-    by the first of ``SPREAD_SCALES`` at which each image of ``cfg``'s test
-    set gets at least 10 detections and no score reaches 0.999, on the card
-    in f32. Returns whether one did."""
+def _spread_classifier(model, cfg, scales=SPREAD_SCALES, bias=True):
+    """Scales the card model's classifiers (``model.classifiers()``:
+    weight and, with ``bias``, bias, so every logit) by the first of ``scales`` at which
+    each image of ``cfg``'s test set gets at least 10 detections and no
+    score reaches 0.999, on the card in f32. Returns whether one did."""
     from arfe_tpu_torch.apis import single_device_test
     from arfe_tpu_torch.tools.test import build_test_loader
-    fc = model.roi_head.bbox_head.fc_cls
+    layers = model.classifiers()
     loader = build_test_loader(cfg)[1]
     applied, readings = 1.0, []
-    for scale in SPREAD_SCALES:
+    for scale in scales:
         with torch.no_grad():
-            fc.weight.mul_(scale / applied)
-            fc.bias.mul_(scale / applied)
+            for fc in layers:
+                fc.weight.mul_(scale / applied)
+                if bias:
+                    fc.bias.mul_(scale / applied)
         applied = scale
         results = single_device_test(model, loader, show_progress=False)
         counts = [len(_flat(r)) for r in results]
@@ -2107,6 +2197,335 @@ def evaluate_mask(name_limit):
     return ok, launches, row
 
 
+# --------------------------------------------------------------------------
+# phases 18-25: Cascade R-CNN + AR-FPN (config #5b) and RetinaNet + AR-FPN
+# (config #2): served, kernel B on each cascade stage's RoIs and kernel A at
+# RetinaNet's refine level, trained (kernel C on each stage's cotangent),
+# and trained and evaluated through the CLIs
+# --------------------------------------------------------------------------
+
+CASCADE_PORT_CFG = 'arfe_tpu_torch/configs/cascade_rcnn_r50_arfpn_1x_coco.py'
+RETINA_PORT_CFG = 'arfe_tpu_torch/configs/retinanet_r50_arfpn_1x_coco.py'
+# RetinaNet's classifier weights (its bias, the prior, kept) scaled up in
+# turn for the check of a trained checkpoint: at random weights every score
+# sits at the prior 0.01, under the 0.05 threshold
+RETINA_SPREAD_SCALES = tuple(2.0 ** i for i in range(14))
+
+
+def check_roi_align_stages(args, stages=3):
+    """Kernel B against ``roi_align_pyramid_plain`` on each cascade stage's
+    RoIs, levels and features in the first bs1 and bs2 requests (R = 1000,
+    2000 a stage: stage 0 the RPN's proposals, stages 1 and 2 the boxes the
+    previous stage regressed), bf16 and f32 (the bs2 levels cast to f32;
+    bs1's from the f32 request): equal bit for bit; each timed by graph
+    replay beside its bound and the plain version's time."""
+    from arfe_tpu_torch.ops import roi_align as ra
+    strides = (4, 8, 16, 32)
+    ok, row = True, {}
+    for b in (1, 2):
+        for dt in (torch.bfloat16, torch.float32):
+            for i in range(stages):
+                feats, rois, lvls = args.get((b, dt, 'stage', i)) \
+                    or args[b, torch.bfloat16, 'stage', i]
+                feats = [f.to(dt) for f in feats]
+                num = rois.shape[0]
+
+                def kernel():
+                    return ra.roi_align_cuda(feats, rois, lvls, (7, 7),
+                                             strides, 2, True)
+
+                def plain():
+                    return ra.roi_align_pyramid_plain(feats, rois, lvls,
+                                                      (7, 7), strides, 2,
+                                                      True)
+                got, ref = kernel(), plain()
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                same = torch.equal(got, ref) \
+                    and bool(torch.isfinite(got).all())
+                del got, ref
+                ok = ok and same
+                ms = cuda_ms(kernel, graph=True)
+                plain_ms = cuda_ms(plain, iters=5)
+                bound, touched = _roi_align_bound(feats, rois, lvls, strides)
+                print(f'roi_align cascade stage {i} R={num} B={b} '
+                      f'{str(dt)[6:]} (per level '
+                      f'{torch.bincount(lvls.long(), minlength=4).tolist()}):'
+                      f' equal to the plain version bit for bit {same}, '
+                      f'max_abs_err {err:.3e}; kernel {ms:.4f} ms, plain '
+                      f'{plain_ms:.4f} ms, bound {bound:.4f} ms ({touched} '
+                      f'distinct pixels) {"ok" if same else "FAIL"}')
+                key = f'_cascade_s{i}_r{num}' + (
+                    '_f32' if dt == torch.float32 else '')
+                row.update({'max_abs_err' + key: err, 'ms' + key: ms,
+                            'plain_ms' + key: plain_ms,
+                            'bound_ms' + key: bound})
+    return ok, row
+
+
+def _empty_split_count(n, dtype):
+    """The smallest key split count of ``dtype``'s kernel over ``n`` keys
+    that leaves a split without keys."""
+    from arfe_tpu_torch.ops import fused_attention as fa
+    tiles = -(-n // fa.TILES[dtype][1])
+    return next(s for s in range(2, fa.MOST_SPLITS + 1)
+                if -(-tiles // -(-tiles // s)) < s)
+
+
+def check_attention_retina(args):
+    """Kernel A on the NonLocal refine level of the first bs1 and bs2
+    RetinaNet requests (N = 25 x 42 = 1050 tokens at stride 32 of 800x1344,
+    ragged in the query and the key tiles), bf16 and f32 (the bs2 inputs
+    cast to f32): against the plain version (in f32 also the exact f64
+    result, phase 12's rule), with the split count ``key_splits`` picks and
+    with a forced count that leaves splits without keys; timed by graph
+    replay beside its bound, the plain version and SDPA."""
+    from arfe_tpu_torch.ops import fused_attention as fa
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ok, row = True, {}
+    for b in (1, 2):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dt) for t in (args.get((b, dt, 'a'))
+                                          or args[b, torch.bfloat16, 'a']))
+            n, c = q.shape[1:]
+            got, ref = fa.fused_attention_cuda(q, k, v), \
+                fa.attention_plain(q, k, v)
+            forced = _empty_split_count(n, dt)
+            empty = fa._launch(q, k, v, None, forced)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            err_empty = (empty - ref).abs().max().item()
+            good = bool(torch.isfinite(got).all()) \
+                and bool(torch.isfinite(empty).all())
+            if dt == torch.float32:
+                exact = torch.softmax(
+                    q.double() @ k.double().transpose(-1, -2), -1) \
+                    @ v.double()
+                err_exact = (got.double() - exact).abs().max().item()
+                plain_exact = (ref.double() - exact).abs().max().item()
+                del exact
+                tol = 1e-4 + plain_exact
+                good = good and err_exact <= 1e-4
+                detail = (f'; against f64: kernel {err_exact:.3e} (tol '
+                          f'1e-4), plain {plain_exact:.3e}')
+            else:
+                tol = 2.0 ** -8 * v.float().abs().max().item()
+                detail = ''
+            good = good and err <= tol and err_empty <= tol
+            ok = ok and good
+            splits = fa.key_splits(b, n, sms, dt)
+
+            def kernel():
+                return fa.fused_attention_cuda(q, k, v)
+            q4, k4, v4 = (t[:, None] for t in (q, k, v))
+            ms = cuda_ms(kernel, graph=True)
+            plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, scale=1.0), graph=True)
+            bound, by = _attention_bound(b, n, c, dt)
+            print(f'attention RetinaNet refine level B={b} N={n} '
+                  f'{str(dt)[6:]}, max |v| {v.float().abs().max().item():.2f}'
+                  f', splits {splits} ({-(-n // fa.TILES[dt][0]) * b * splits}'
+                  f' blocks): max_abs_err {err:.3e} against plain (tol '
+                  f'{tol:.3e}){detail}; forced {forced} splits (some without '
+                  f'keys) {err_empty:.3e}; kernel {ms:.4f} ms, plain '
+                  f'{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound '
+                  f'{bound:.4f} ms ({by}) {"ok" if good else "FAIL"}')
+            key = '_retina_n1050' + ('_b2' if b == 2 else '') + (
+                '_f32' if dt == torch.float32 else '')
+            row.update({'max_abs_err' + key: err, 'ms' + key: ms,
+                        'plain_ms' + key: plain_ms,
+                        'library_ms' + key: lib_ms, 'bound_ms' + key: bound,
+                        'splits' + key: splits, 'n' + key: n})
+    return ok, row
+
+
+def cascade_rcnn(requests, train_dtypes):
+    """(a) Serve Cascade R-CNN (A once, B three times per request) and check
+    it against the CPU; (b) kernel B on each stage's RoIs of the requests;
+    (c) train it (A once, B and C three times per step; the later stages'
+    heads move), kernel C on each stage's cotangent and RoIs of the first
+    step, and a training step against the CPU. Returns each check's result,
+    the serving and training runs' launches, and the rows' additions for A,
+    B and C."""
+    cfg = bench.CASCADE_CFG
+    results, rows = {}, [{}, {}, {}]
+    with phase('cascade: serve'):
+        model = build_detector(cfg, CLS_SCALE['cascade'])
+        launches_serve, results['serve'], args = serve(model, requests)
+    with phase('cascade: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase("cascade: kernel B on each stage's RoIs"):
+        results['kernel_b'], rows[1] = check_roi_align_stages(args)
+    del args
+    with phase('cascade: train'):
+        model, start, launches_train, step_args, results['train'] = train(
+            cfg, train_dtypes, tuple(f'roi_head.bbox_head.{i}.{m}'
+                                     for i in (1, 2)
+                                     for m in ('shared_fcs', 'fc_cls')))
+    with phase("cascade: kernel C on each stage's cotangent"):
+        # each C launch's stage is that of the one B launch with its RoIs
+        stage_of = [j[0] if len(j) == 1 else None
+                    for j in step_args['forward_index']]
+        ok = sorted(stage_of, key=str) == [0, 1, 2]
+        print(f'kernel C launches by stage {stage_of} '
+              f'{"ok" if ok else "FAIL"}')
+        for i, a in sorted(zip(stage_of, step_args['all']),
+                           key=lambda sa: str(sa[0])):
+            good, row = check_roi_align_bwd_step(
+                a, key=f'_cascade_s{i}_r{a[1].shape[0]}', plain=i == 0)
+            ok = ok and good
+            rows[2].update(row)
+        results['kernel_c'] = ok
+    del step_args
+    with phase('cascade: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, rows
+
+
+def retinanet(requests, train_dtypes):
+    """(a) Serve RetinaNet (A once, B never per request) and check it
+    against the CPU; (b) kernel A at its refine level on the requests'
+    inputs; (c) train it (A once, B and C never per step; the head's last
+    convs and its classifier move) and check a training step against the
+    CPU. Returns each check's result, the serving and training runs'
+    launches, and the rows' additions for A."""
+    cfg = bench.RETINA_CFG
+    results, rows = {}, [{}, {}, {}]
+    with phase('retina: serve'):
+        model = build_detector(cfg, CLS_SCALE['retina'])
+        launches_serve, results['serve'], args = serve(model, requests)
+    with phase('retina: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase('retina: kernel A at N = 1050'):
+        results['kernel_a'], rows[0] = check_attention_retina(args)
+    del args
+    with phase('retina: train'):
+        model, start, launches_train, _, results['train'] = train(
+            cfg, train_dtypes, ('bbox_head.retina_cls',
+                                'bbox_head.retina_reg',
+                                'bbox_head.cls_convs.3',
+                                'bbox_head.reg_convs.3'))
+    with phase('retina: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, rows
+
+
+def train_and_evaluate(name, port_cfg, root, n_b, name_limit):
+    """Writes 8 box PNGs under ``root``, trains the ``port_cfg`` detector at
+    full width through ``tools.train.main`` (one epoch of 4 iterations, bs2
+    bf16), runs ``tools.test.main`` on ``latest.pth`` with ``--eval bbox``,
+    and checks: every iteration launches A once, B and C ``n_b`` times;
+    every evaluated image A once and B ``n_b`` times; the six stats print;
+    the card's f32 stats with ``latest.pth`` within 1e-3 of the CPU's plain
+    path at ``CPU_SCALE``, ground truth seeded from the CPU's detections,
+    every detection matched one for one. A two-stage detector keeps every
+    score and its classifiers are spread down (phase 13); RetinaNet keeps
+    its 0.05 threshold and its classifier's weights are spread up
+    (``RETINA_SPREAD_SCALES``). Returns whether all held and the
+    evaluation's launches."""
+    import shutil
+
+    from arfe_tpu_torch.apis import init_detector
+    from arfe_tpu_torch.config import Config
+    from arfe_tpu_torch.data import synthetic
+    from arfe_tpu_torch.models import detectors
+    from arfe_tpu_torch.ops import fused_attention as fa
+    from arfe_tpu_torch.ops import roi_align as ra
+    from arfe_tpu_torch.tools import test as test_cli
+    from arfe_tpu_torch.tools import train as train_cli
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    images, anns = synthetic.write_box_set(root, TRAIN_SIZES, seed=17)
+    print(f'{name} set: {len(images)} PNGs at {TRAIN_SIZES[:2]}, {len(anns)} '
+          f'boxes, written in {time.time() - t0:.1f} s')
+    work = f'{root}/work'
+    data = [f'data.{split}.{k}={root}/{v}' for split in
+            ('train', 'val', 'test')
+            for k, v in (('ann_file', 'ann.json'), ('img_prefix', 'imgs/'))]
+    ok = True
+    fa.launches = ra.launches = ra.bwd_launches = 0
+    with TrainRunLog() as run:
+        history = train_cli.main([
+            port_cfg, '--work-dir', work, '--seed', '0', '--dtype', 'bf16',
+            '--no-validate', '--options', *data, 'model.pretrained=None',
+            'total_epochs=1', 'log_config.interval=1'])
+    per_iter = [r['launches'] for r in run.iters]
+    losses = [v for e in history if e['mode'] == 'train'
+              for k, v in e.items() if 'loss' in k]
+    good = len(run.iters) == MASK_TRAIN_ITERS \
+        and set(per_iter) == {(1, n_b, n_b)} and len(losses) > 0 \
+        and all(np.isfinite(losses)) and os.path.exists(f'{work}/latest.pth')
+    its = sorted(b['start'] - a['start']
+                 for a, b in zip(run.iters[1:], run.iters[2:]))
+    print(f'{name} train CLI: {len(run.iters)} iterations bs2 bf16 at (1333, '
+          f'800), launches per iteration (attention, roi_align, '
+          f'roi_align_bwd) {sorted(set(per_iter))}, last loss '
+          f'{[e for e in history if e["mode"] == "train"][-1]["loss"]:.4f}, '
+          f's per iteration after the first two '
+          f'{[round(v, 4) for v in its]} {"ok" if good else "FAIL"}')
+    ok = ok and good
+    # the test CLI, each request's launches counted
+    dumped = f'{work}/{os.path.basename(port_cfg)}'
+    cls = getattr(detectors, Config.fromfile(port_cfg).model.type)
+    per_request, original = [], cls.simple_test
+
+    def counted(self, *args, **kwargs):
+        counts = (fa.launches, ra.launches)
+        out = original(self, *args, **kwargs)
+        per_request.append((fa.launches - counts[0], ra.launches - counts[1]))
+        return out
+    fa.launches = ra.launches = ra.bwd_launches = 0
+    cls.simple_test = counted
+    try:
+        metrics = test_cli.main([dumped, f'{work}/latest.pth', '--eval',
+                                 'bbox'])
+    finally:
+        cls.simple_test = original
+    launches = {'fused_attention': fa.launches, 'roi_align': ra.launches,
+                'roi_align_bwd': ra.bwd_launches}
+    n = len(images)
+    good = set(per_request) == {(1, n_b)} and len(per_request) == n \
+        and launches == {'fused_attention': n, 'roi_align': n_b * n,
+                         'roi_align_bwd': 0} \
+        and all(k in metrics and np.isfinite(metrics[k]) for k in STATS)
+    print(f'{name} test CLI on latest.pth --eval bbox: launches per image '
+          f'(attention, roi_align) {sorted(set(per_request))} over '
+          f'{len(per_request)} images, {launches}; '
+          + ', '.join(f'{k} {metrics.get(k, float("nan")):.4f}'
+                      for k in STATS) + f' {"ok" if good else "FAIL"}')
+    ok = ok and good
+    # the card in f32 against the CPU at CPU_SCALE on four images
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    synthetic.write_annotations(f'{root}/ann.json', images[:4])
+    compare = f'{root}/compare_cfg.py'
+    two_stage = n_b > 0
+    with open(compare, 'w') as f:
+        f.write(f"_base_ = ['{os.path.abspath(dumped)}']\n"
+                + ('test_cfg = dict(rcnn=dict(score_thr=0.0))\n'
+                   if two_stage else ''))
+    model = init_detector(compare, f'{work}/latest.pth')
+    cfg = _eval_config(CPU_SCALE, workers=0, root=root, path=compare)
+    good = _spread_classifier(model, cfg) if two_stage else \
+        _spread_classifier(model, cfg, RETINA_SPREAD_SCALES, bias=False)
+    ok = good and eval_reference_check(model, images[:4], root=root,
+                                       path=compare, match=True) and ok
+    del model
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
 PHASE_SECONDS = {}
 
 
@@ -2173,6 +2592,18 @@ def main():
     with phase('mask: train and evaluate through the CLIs'):
         ok_mask_eval, launches_mask_eval, mask_row = evaluate_mask(name_limit)
     rows[0].update(mask_row)
+    cascade = cascade_rcnn([(1, bf)] * 2 + [(2, bf), (1, f32)],
+                           [bf, bf, f32])
+    rows[1].update(cascade[3][1])
+    rows[2].update(cascade[3][2])
+    with phase('cascade: train and evaluate through the CLIs'):
+        ok_cascade_eval, launches_cascade_eval = train_and_evaluate(
+            'cascade', CASCADE_PORT_CFG, 'build/cascade_coco', 3, name_limit)
+    retina = retinanet([(1, bf)] * 2 + [(2, bf), (1, f32)], [bf, bf, f32])
+    rows[0].update(retina[3][0])
+    with phase('retina: train and evaluate through the CLIs'):
+        ok_retina_eval, launches_retina_eval = train_and_evaluate(
+            'retina', RETINA_PORT_CFG, 'build/retina_coco', 0, name_limit)
     for row in rows:
         row['launches'] = launches[row['name']]
         row['launches_serve'] = launches_serve.get(row['name'], 0)
@@ -2185,15 +2616,25 @@ def main():
         row['launches_mask_serve'] = mask[1].get(row['name'], 0)
         row['launches_mask_train'] = mask[2][row['name']]
         row['launches_mask_eval'] = launches_mask_eval[row['name']]
+        for name, runs, evaluated in (
+                ('cascade', cascade, launches_cascade_eval),
+                ('retina', retina, launches_retina_eval)):
+            row[f'launches_{name}_serve'] = runs[1].get(row['name'], 0)
+            row[f'launches_{name}_train'] = runs[2][row['name']]
+            row[f'launches_{name}_eval'] = evaluated[row['name']]
     failed = [k for k, v in (('kernels', ok_kernels), ('serve', ok_serve),
                              ('reference', ok_ref), ('train', ok_train),
                              ('kernel C on a step', ok_step_rois),
                              ('train reference', ok_train_ref),
                              ('arrff evaluate', ok_eval),
                              ('arrff train run', ok_train_run),
-                             ('mask evaluate', ok_mask_eval)) if not v]
+                             ('mask evaluate', ok_mask_eval),
+                             ('cascade evaluate', ok_cascade_eval),
+                             ('retina evaluate', ok_retina_eval)) if not v]
     failed += [f'{name} {k}' for name, r in (('arrff', arrff), ('fac', fac),
-                                             ('mask', mask))
+                                             ('mask', mask),
+                                             ('cascade', cascade),
+                                             ('retina', retina))
                for k, v in r[0].items() if not v]
     print(f'phases: {len(PHASE_SECONDS)}, total {time.time() - t0:.1f} s')
     if failed:

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, their
 gradients through the autograd Functions, the tiny flagship's inference
-and training step on the card against the CPU, and the training run's loop
-and checkpoints on the card.
+and training step on the card against the CPU (and those of Mask R-CNN,
+Cascade R-CNN and RetinaNet), and the training run's loop and checkpoints
+on the card.
 
 Marked ``gpu``; every test skips where there is no CUDA device. This file
 imports no JAX, so it also runs where JAX is not installed:
@@ -17,6 +18,8 @@ from arfe_tpu_torch.core.bbox import bbox_overlaps
 from arfe_tpu_torch.models.utils import get_adaptive_scale_rois
 from arfe_tpu_torch.ops import fused_attention as fa
 from arfe_tpu_torch.ops import roi_align as ra
+from arfe_tpu_torch.tools.step_conditioning import (spread_classifiers,
+                                                    tiny_cascade_config)
 from arfe_tpu_torch.train import bench
 
 pytestmark = pytest.mark.gpu
@@ -182,15 +185,24 @@ def test_roi_align_backward_kernel_rejects_channels_off_the_vector(cuda):
     assert ra.bwd_launches == before
 
 
-def _tiny_cfg(path=bench.FLAGSHIP_CFG):
-    """The flagship (or another config of its family) at R18 and 64
+def _tiny_trunk_cfg(path):
+    """A config's backbone, necks and RPN (where it has one) at R18 and 64
     channels."""
     cfg = Config.fromfile(path)
     mc = cfg.model
     mc.backbone.depth = 18
     mc.neck[0].update(in_channels=[64, 128, 256, 512], out_channels=64)
     mc.neck[1].in_channels = 64
-    mc.rpn_head.update(in_channels=64, feat_channels=64)
+    if 'rpn_head' in mc:
+        mc.rpn_head.update(in_channels=64, feat_channels=64)
+    return cfg
+
+
+def _tiny_cfg(path=bench.FLAGSHIP_CFG):
+    """The flagship (or another config of its family) at R18 and 64
+    channels."""
+    cfg = _tiny_trunk_cfg(path)
+    mc = cfg.model
     mc.roi_head.bbox_roi_extractor.out_channels = 64
     mc.roi_head.bbox_head.update(in_channels=64, fc_out_channels=128)
     return cfg
@@ -583,3 +595,153 @@ def test_mask_rcnn_on_card_matches_cpu(cuda):
         == (1, 2, 2)
     assert r['ok'], r
     assert any(k.startswith('roi_head.mask_head.') for k in r['cpu'][1])
+
+
+# RetinaNet's refine level at 800x1344: N = 25 x 42 = 1050 tokens (stride
+# 32 of five levels from stride 8), ragged in the query and the key tiles
+# (bf16: 16 x 64 + 26; f32: 8 x 128 + 26 query rows, 32 x 32 + 26 keys)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b', [1, 2])
+def test_attention_kernel_at_retinanet_refine_level(cuda, b, dtype):
+    """Kernel A at N = 1050 with the split count ``key_splits`` picks, and
+    with a forced count that leaves splits without keys, against the plain
+    version."""
+    n = 1050
+    gen = torch.Generator(device=cuda).manual_seed(n + b)
+    q, k, v = (torch.randn((b, n, 256), generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    ref = fa.attention_plain(q, k, v)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -8 * v.abs().max().item()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    key_tiles = -(-n // fa.TILES[dtype][1])
+    picked = fa.key_splits(b, n, sms, dtype)
+    assert 1 <= picked <= min(key_tiles, fa.MOST_SPLITS)
+    forced = next(s for s in range(2, fa.MOST_SPLITS + 1)
+                  if -(-key_tiles // -(-key_tiles // s)) < s)
+    before = fa.launches
+    for got in (fa.fused_softmax_attention(q, k, v),
+                fa._launch(q, k, v, None, forced)):
+        assert bool(torch.isfinite(got).all())
+        assert (got - ref).abs().max().item() <= tol
+    assert fa.launches == before + 2
+
+
+def _detections_match(want, got, margin=1e-3):
+    """Every detection of either side scoring ``margin`` above the higher of
+    the two sides' lowest scores (the score threshold or the 100-detection
+    cut, where f32 rounding decides) has a detection of its label on the
+    other side with IoU > 0.7 and a score within 1e-2 (the rule of
+    tests/test_e2e_parity_arfe.py); at least 5 do."""
+    dets = [(d[0][0][d[2][0]], d[1][0][d[2][0]]) for d in (want, got)]
+    floor = max(float(d[:, 4].min()) for d, _ in dets) + margin
+    for (ad, al), (bd, bl) in (dets, dets[::-1]):
+        keep = ad[:, 4] >= floor
+        ad, al = ad[keep], al[keep]
+        assert len(ad) >= 5
+        close = (bbox_overlaps(ad[:, :4], bd[:, :4]) > 0.7) \
+            & (al[:, None] == bl[None]) \
+            & ((ad[:, None, 4] - bd[None, :, 4]).abs() < 1e-2)
+        assert bool(close.any(dim=1).all())
+
+
+def test_cascade_rcnn_on_card_matches_cpu(cuda):
+    """The tiny Cascade R-CNN on the card: one launch of A and three of B
+    (a stage each) per request, each stage's B bit for bit its plain
+    version on that stage's RoIs; detections against the CPU (classifiers
+    spread); one f32 step of the seeded weights, as
+    ``test_arfe_train_step_on_card_matches_cpu`` takes it (A once, B and C
+    three times), against the CPU's losses and gradients, each stage's C
+    within 1e-5 of its plain version on that stage's cotangent."""
+    cfg = tiny_cascade_config()
+    cpu = init_detector(cfg, device='cpu', train=True)
+    img = torch.randn((1, 192, 256, 3),
+                      generator=torch.Generator().manual_seed(0)) * 0.2
+    shapes, scales = torch.tensor([[192., 250.]]), torch.ones(1, 4)
+    want = spread_classifiers(
+        cpu, [h.fc_cls.weight for h in cpu.roi_head.bbox_head], img)
+    gpu = init_detector(cfg, device='cuda', train=True)
+    gpu.load_state_dict(cpu.state_dict())
+    torch.manual_seed(0)
+    cpu_step = init_detector(cfg, device='cpu', train=True)
+    with torch.no_grad():
+        cpu_step.neck[1].refine.conv_out.conv.weight.normal_(0, 0.02)
+    gpu_step = init_detector(cfg, device='cuda', train=True)
+    gpu_step.load_state_dict(cpu_step.state_dict())
+    kernel_b, kernel_c, args_b, args_c = (ra.roi_align_cuda,
+                                          ra.roi_align_backward_cuda, [], [])
+
+    def keep_b(feats, rois, lvls, *rest, **kwargs):
+        args_b.append((feats, rois.clone(), lvls.clone()))
+        return kernel_b(feats, rois, lvls, *rest, **kwargs)
+
+    def keep_c(g, rois, lvls, shapes, *rest, **kwargs):
+        args_c.append((g.clone(), rois.clone(), lvls.clone(),
+                       [tuple(s) for s in shapes]))
+        return kernel_c(g, rois, lvls, shapes, *rest, **kwargs)
+    ra.roi_align_cuda, ra.roi_align_backward_cuda = keep_b, keep_c
+    try:
+        a0, r0 = fa.launches, ra.launches
+        got = [t.cpu() for t in gpu.simple_test(
+            img.to(cuda), shapes.to(cuda), scales.to(cuda))]
+        assert (fa.launches - a0, ra.launches - r0) == (1, 3)
+        _detections_match(want, got)
+        strides = (4, 8, 16, 32)
+        for feats, rois, lvls in args_b:
+            assert torch.equal(
+                kernel_b(feats, rois, lvls, (7, 7), strides, 2, True),
+                ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7),
+                                           strides, 2, True))
+        batch = bench.synthetic_batch(2, 192, 256, (192., 250.),
+                                      torch.float32, seed=3, device='cpu')
+        args_c.clear()
+        counts = (fa.launches, ra.launches, ra.bwd_launches)
+        r = bench.compare_with_cpu(gpu_step, cpu_step, batch, seed=1)
+        assert [n - c for n, c in zip(
+            (fa.launches, ra.launches, ra.bwd_launches), counts)] \
+            == [1, 3, 3]
+    finally:
+        ra.roi_align_cuda, ra.roi_align_backward_cuda = kernel_b, kernel_c
+    assert r['ok'], (r['loss_err'], r['grad_err'], r['grad_spread'])
+    assert sorted(r['loss_err']) == sorted(
+        ['loss', 'loss_rpn_cls', 'loss_rpn_bbox'] + [
+            f's{i}.{k}' for i in range(3)
+            for k in ('loss_cls', 'acc', 'loss_bbox')])
+    assert len(args_c) == 3
+    for g, rois, lvls, level_shapes in args_c:
+        got = kernel_c(g, rois, lvls, level_shapes, (7, 7))
+        want = ra.roi_align_backward_plain(g, rois, lvls, level_shapes,
+                                           (7, 7))
+        scale = ra.roi_align_backward_plain(g.abs(), rois, lvls,
+                                            level_shapes, (7, 7))
+        for d, w, s in zip(got, want, scale):
+            assert bool(((d - w).abs() <= 1e-5 * s + 1e-7).all())
+
+
+def test_retinanet_on_card_matches_cpu(cuda):
+    """The tiny RetinaNet on the card: one launch of A and none of B per
+    request, detections against the CPU; one f32 step (A once, no B or C)
+    against the CPU's losses and gradients."""
+    cfg = _tiny_trunk_cfg(bench.RETINA_CFG)
+    cfg.model.bbox_head.update(in_channels=64, feat_channels=64,
+                               stacked_convs=2)
+    cpu = init_detector(cfg, device='cpu', train=True)
+    img = torch.randn((1, 192, 256, 3),
+                      generator=torch.Generator().manual_seed(0)) * 0.2
+    shapes, scales = torch.tensor([[192., 250.]]), torch.ones(1, 4)
+    want = spread_classifiers(cpu, [cpu.bbox_head.retina_cls.weight],
+                              img)
+    gpu = init_detector(cfg, device='cuda', train=True)
+    gpu.load_state_dict(cpu.state_dict())
+    a0, r0 = fa.launches, ra.launches
+    got = [t.cpu() for t in gpu.simple_test(img.to(cuda), shapes.to(cuda),
+                                            scales.to(cuda))]
+    assert (fa.launches - a0, ra.launches - r0) == (1, 0)
+    _detections_match(want, got)
+    batch = bench.synthetic_batch(2, 192, 256, (192., 250.), torch.float32,
+                                  seed=3, device='cpu')
+    counts = (fa.launches, ra.launches, ra.bwd_launches)
+    r = bench.compare_with_cpu(gpu, cpu, batch)
+    assert [n - c for n, c in zip(
+        (fa.launches, ra.launches, ra.bwd_launches), counts)] == [1, 0, 0]
+    assert r['ok'], r
+    assert sorted(r['loss_err']) == ['loss', 'loss_bbox', 'loss_cls']

@@ -1,6 +1,7 @@
 """The port stands alone: importing any of its modules (the data and
-evaluation path, the training run, the masks of Mask R-CNN, and the
-``test``, ``train`` and ``e2e_smoke`` CLIs among them), or ``chip_smoke``,
+evaluation path, the training run, the masks of Mask R-CNN, Cascade R-CNN's
+and RetinaNet's heads, and the ``test``, ``train`` and ``e2e_smoke`` CLIs
+among them), or ``chip_smoke``,
 loads no JAX, no optax and nothing of the JAX package; its entry point
 defaults to the card."""
 import os
@@ -46,7 +47,13 @@ missing = [m for m in ('arfe_tpu_torch.train.optimizer',
                        'arfe_tpu_torch.core.mask.mask_target',
                        'arfe_tpu_torch.models.roi_heads.mask_heads.'
                        'fcn_mask_head',
-                       'arfe_tpu_torch.data.synthetic')
+                       'arfe_tpu_torch.data.synthetic',
+                       'arfe_tpu_torch.models.roi_heads.cascade_roi_head',
+                       'arfe_tpu_torch.models.dense_heads.retina_head',
+                       'arfe_tpu_torch.models.detectors.single_stage',
+                       'arfe_tpu_torch.models.losses.focal_loss',
+                       'arfe_tpu_torch.models.necks.fpn',
+                       'arfe_tpu_torch.tools.step_conditioning')
            if m not in sys.modules]
 print('modules:', len(sys.modules), 'forbidden:', bad, 'missing:', missing)
 sys.exit(1 if bad or missing else 0)
