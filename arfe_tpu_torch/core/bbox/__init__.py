@@ -1,9 +1,13 @@
 from .assigners import MaxIoUAssigner
 from .coder import DeltaXYWHBBoxCoder, bbox2delta, delta2bbox
 from .iou import bbox_overlaps
-from .samplers import PseudoSampler, RandomSampler
+from .samplers import (CombinedSampler, InstanceBalancedPosSampler,
+                       IoUBalancedNegSampler, OHEMSampler, PseudoSampler,
+                       RandomSampler, RandomSamplerPrior, ScoreHLRSampler)
 from .transforms import bbox2result
 
-__all__ = ['DeltaXYWHBBoxCoder', 'MaxIoUAssigner', 'PseudoSampler',
-           'RandomSampler',
+__all__ = ['CombinedSampler', 'DeltaXYWHBBoxCoder',
+           'InstanceBalancedPosSampler', 'IoUBalancedNegSampler',
+           'MaxIoUAssigner', 'OHEMSampler', 'PseudoSampler', 'RandomSampler',
+           'RandomSamplerPrior', 'ScoreHLRSampler',
            'bbox2delta', 'bbox2result', 'bbox_overlaps', 'delta2bbox']

@@ -1,4 +1,4 @@
 from .fpn import FPN
-from .wfpn import WFPNDualSpatial
+from .wfpn import BFP, WFPNDualSpatial
 
-__all__ = ['FPN', 'WFPNDualSpatial']
+__all__ = ['BFP', 'FPN', 'WFPNDualSpatial']

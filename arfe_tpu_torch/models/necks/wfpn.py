@@ -1,5 +1,6 @@
 """AR-FPN refinement neck ``WFPNDualSpatial`` (counterpart of
-``arfe_tpu/models/necks/wfpn.py:28-114``).
+``arfe_tpu/models/necks/wfpn.py:28-114``), and Libra R-CNN's balanced
+feature pyramid ``BFP`` (``:515-554``).
 
 All levels are gathered to the ``refine_level`` resolution (adaptive max
 pool down, nearest up) and averaged; a NonLocal2D block refines the average;
@@ -56,4 +57,44 @@ class WFPNDualSpatial(nn.Module):
                                      self.reduce_convs2):
             att = torch.tanh(conv_b(x)) + torch.tanh(conv_c(x))
             outs.append(x + resize_nearest(bsf, x.shape[2:]) * att)
+        return tuple(outs)
+
+
+@NECKS.register_module()
+class BFP(nn.Module):
+    """Balanced feature pyramid: the levels gathered and averaged as in
+    ``WFPNDualSpatial``, refined (``refine_type`` ``None``, ``'conv'``, a 3x3
+    conv, or ``'non_local'``, the NonLocal2D block), and scattered back as
+    a residual: nearest up below the refine level, adaptive max pool down
+    at and above it."""
+
+    def __init__(self, in_channels, num_levels, refine_level=2,
+                 refine_type=None, conv_cfg=None, norm_cfg=None):
+        super().__init__()
+        if refine_type not in (None, 'conv', 'non_local'):
+            raise ValueError(f'BFP: refine_type {refine_type!r}')
+        self.num_levels = num_levels
+        self.refine_level = refine_level
+        self.refine_type = refine_type
+        if refine_type == 'conv':
+            self.refine = ConvModule(in_channels, in_channels, 3, padding=1,
+                                     norm_cfg=norm_cfg, act_cfg='relu',
+                                     weight_init='xavier')
+        elif refine_type == 'non_local':
+            self.refine = NonLocal2D(in_channels, reduction=1,
+                                     use_scale=False, norm_cfg=norm_cfg)
+
+    def forward(self, inputs):
+        if len(inputs) != self.num_levels:
+            raise ValueError(f'BFP: {len(inputs)} levels, expected '
+                             f'{self.num_levels}')
+        bsf = _gather_levels(inputs, self.refine_level)
+        if self.refine_type is not None:
+            bsf = self.refine(bsf)
+        outs = []
+        for i, x in enumerate(inputs):
+            size = x.shape[2:]
+            residual = resize_nearest(bsf, size) if i < self.refine_level \
+                else adaptive_max_pool2d(bsf, size)
+            outs.append(x + residual)
         return tuple(outs)

@@ -20,8 +20,13 @@ leading ``num * pos_fraction`` slots of each image, which hold every
 positive (the sampler packs them first), against targets resampled from
 the batch's fixed gt crops (``core.mask.mask_target_from_crops``); in
 inference every detection slot, padding included, so each request makes
-one mask extraction of fixed size. OHEM and mask test-time augmentation
-are not ported here.
+one mask extraction of fixed size. Mask test-time augmentation is not
+ported here.
+
+A sampler that ``needs_hard_scores`` (OHEM) ranks the candidates by their
+classification loss: every candidate of the batch is assigned and goes
+through the bbox branch once more without gradient (one more RoIAlign
+forward, no backward), and its loss against its label is its score.
 """
 from __future__ import annotations
 
@@ -65,12 +70,14 @@ def assign_candidates(assigner, sampler, proposals, prop_valid, gt_bboxes,
 
 
 def sample_candidates(sampler, gen, boxes, assigned, max_overlaps, gt_bboxes,
-                      gt_labels):
+                      gt_labels, hard_scores=None):
     """Each image's candidates sampled into the sampler's slots, positives
     first: the slots' candidate indices, boxes, matched gt indices, boxes
-    and labels, and their is_pos / valid masks, all (B, S, ...)."""
+    and labels, and their is_pos / valid masks, all (B, S, ...).
+    ``hard_scores`` (B, N) rank the candidates of an OHEM sampler."""
     sample = sampler.sample(gen, assigned, max_overlaps=max_overlaps,
-                            num_gts=gt_bboxes.shape[1])
+                            num_gts=gt_bboxes.shape[1],
+                            hard_scores=hard_scores)
     inds = sample['inds']
     safe_gt = torch.clamp(_rows(assigned, inds) - 1, 0,
                           gt_bboxes.shape[1] - 1)
@@ -175,8 +182,12 @@ class StandardRoIHead(nn.Module):
         """
         boxes, assigned, max_overlaps = self._assign(proposals, prop_valid,
                                                      gt_bboxes, gt_valid)
+        hard_scores = self._candidate_hard_scores(
+            feats, boxes, assigned, gt_labels) \
+            if self.sampler.needs_hard_scores else None
         sampled = sample_candidates(self.sampler, gen, boxes, assigned,
-                                    max_overlaps, gt_bboxes, gt_labels)
+                                    max_overlaps, gt_bboxes, gt_labels,
+                                    hard_scores)
         boxes = sampled['boxes']
         b = boxes.shape[0]
         # every slot is extracted, invalid ones too: their loss weight is 0
@@ -201,6 +212,22 @@ class StandardRoIHead(nn.Module):
             losses.update(self._mask_forward_train(feats, rois, sampled,
                                                    gt_mask_crops))
         return losses
+
+    @torch.no_grad()
+    def _candidate_hard_scores(self, feats, boxes, assigned, gt_labels):
+        """OHEM's scores (B, N): each candidate's classification loss
+        against its label (the background where it is not a positive), from
+        one forward of the bbox branch over all B x N candidates without
+        gradient."""
+        b, n = boxes.shape[:2]
+        cls_score = self._bbox_forward(feats, boxes_to_rois(boxes),
+                                       num_imgs=b)[0]
+        safe = torch.clamp(assigned - 1, 0, gt_labels.shape[1] - 1)
+        labels = torch.where(assigned > 0, _rows(gt_labels.long(), safe),
+                             self.bbox_head.num_classes)
+        loss = self.bbox_head.loss_cls(cls_score.float(), labels.reshape(-1),
+                                       reduction_override='none')
+        return loss.reshape(b, n)
 
     def _mask_forward_train(self, feats, rois, sampled, gt_mask_crops):
         """The mask loss of the positive slots (ref:

@@ -8,7 +8,11 @@ Serves a detector (by default the flagship Faster R-CNN R50 + AR-FPN,
 ``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``, whose RoI head stage holds
 its mask branch, Cascade R-CNN ``configs/arfe/cascade_rcnn_r50_arfpn_1x_coco.
 py``, whose RoI head stage holds its three stages, RetinaNet
-``configs/arfe/retinanet_r50_arfpn_1x_coco.py``) at 800x1344 in bf16
+``configs/arfe/retinanet_r50_arfpn_1x_coco.py``, Libra R-CNN + ARFE
+``configs/libra_rcnn/libra_faster_rcnn_r{50,101}_fpn_1x_coco.py``, Libra
+RetinaNet ``configs/libra_rcnn/libra_retinanet_r50_fpn_1x_coco.py``, Faster
+R-CNN with OHEM or BFP ``configs/faster_rcnn/faster_rcnn_r50_fpn_{ohem,bfp}_
+1x_coco.py``) at 800x1344 in bf16
 with seeded random weights (as ``chip_smoke.py`` does) and prints, over five
 requests after two warm-up requests:
 

@@ -7,7 +7,10 @@ Trains a detector (by default the flagship Faster R-CNN R50 + AR-FPN; the
 AR-RFF flagship is ``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``,
 Mask R-CNN ``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``, Cascade R-CNN
 ``configs/arfe/cascade_rcnn_r50_arfpn_1x_coco.py``, RetinaNet
-``configs/arfe/retinanet_r50_arfpn_1x_coco.py``)
+``configs/arfe/retinanet_r50_arfpn_1x_coco.py``, Libra R-CNN + ARFE
+``configs/libra_rcnn/libra_faster_rcnn_r{50,101}_fpn_1x_coco.py``, Libra
+RetinaNet ``configs/libra_rcnn/libra_retinanet_r50_fpn_1x_coco.py``, Faster
+R-CNN + OHEM ``configs/faster_rcnn/faster_rcnn_r50_fpn_ohem_1x_coco.py``)
 at 800x1344 in bf16 (or f32: ``--dtype f32``) with seeded random weights,
 the bench's synthetic batch (8 gt boxes of 30-80 px per image, and random
 28 x 28 gt mask crops for a mask head, ``bench.py:170-188``) and its SGD

@@ -11,7 +11,8 @@ here:
   SGD schedule (``bench.py:163-168``);
 - :func:`compare_with_cpu`: the losses and gradients of one f32 step of a
   model on the card against the same weights on the CPU (plain path), with
-  the same sampling priorities.
+  the same sampling draws (:func:`fix_priorities`), and for OHEM the CPU's
+  hard scores.
 """
 from __future__ import annotations
 
@@ -40,6 +41,19 @@ MASK_CFG = os.path.join(_CONFIGS, 'arfe', 'mask_rcnn_r50_arfpn_1x_coco.py')
 CASCADE_CFG = os.path.join(_CONFIGS, 'arfe',
                            'cascade_rcnn_r50_arfpn_1x_coco.py')
 RETINA_CFG = os.path.join(_CONFIGS, 'arfe', 'retinanet_r50_arfpn_1x_coco.py')
+#: Libra R-CNN + ARFE at R50 and R101 (its balanced samplers, balanced L1
+#: and AR-FPN at refine level 3), and Libra RetinaNet with its BFP neck
+LIBRA_CFG = os.path.join(_CONFIGS, 'libra_rcnn',
+                         'libra_faster_rcnn_r50_fpn_1x_coco.py')
+LIBRA101_CFG = os.path.join(_CONFIGS, 'libra_rcnn',
+                            'libra_faster_rcnn_r101_fpn_1x_coco.py')
+LIBRA_RETINA_CFG = os.path.join(_CONFIGS, 'libra_rcnn',
+                                'libra_retinanet_r50_fpn_1x_coco.py')
+#: Faster R-CNN R50 + FPN with OHEM's sampler, and with the BFP neck
+OHEM_CFG = os.path.join(_CONFIGS, 'faster_rcnn',
+                        'faster_rcnn_r50_fpn_ohem_1x_coco.py')
+BFP_CFG = os.path.join(_CONFIGS, 'faster_rcnn',
+                       'faster_rcnn_r50_fpn_bfp_1x_coco.py')
 H, W = 800, 1344             # the bench's padded image (bench.py:28)
 IMG_SHAPE = (800.0, 1333.0)  # its content shape (bench.py:90)
 BATCH_KEYS = ('img', 'img_shape', 'gt_bboxes', 'gt_valid', 'gt_labels')
@@ -54,6 +68,10 @@ BATCH_KEYS = ('img', 'img_shape', 'gt_bboxes', 'gt_valid', 'gt_labels')
 # compare seeded weights, which give the same reading in every run.
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 5e-2
+# OHEM's hard scores (classification losses of every candidate) on the card
+# against the CPU: within HARD_RTOL of their largest + 4x the CPU's own
+# spread (one thread against all)
+HARD_RTOL = 1e-4
 
 
 def synthetic_batch(b, h=H, w=W, img_shape=IMG_SHAPE, dtype=torch.bfloat16,
@@ -82,19 +100,38 @@ def synthetic_batch(b, h=H, w=W, img_shape=IMG_SHAPE, dtype=torch.bfloat16,
     return {k: v.to(device) for k, v in batch.items()}
 
 
+def refine_block(model):
+    """The neck's NonLocal2D refine (AR-FPN's or BFP's), or None."""
+    from ..ops.non_local import NonLocal2D
+    return next((m for m in model.modules() if isinstance(m, NonLocal2D)),
+                None)
+
+
+def step_launches(model):
+    """The kernel launches (A, B, C) of one training step: A once where the
+    neck has a NonLocal refine; B and C once per RoI extraction, and B once
+    more for OHEM's hard-mining forward over every candidate, which takes
+    no gradient."""
+    mining = any(s.needs_hard_scores for s in model.roi_samplers)
+    n = model.num_extractions
+    return int(refine_block(model) is not None), n + mining, n
+
+
 def build_trainer(cfg=FLAGSHIP_CFG, device='cuda', seed=1):
     """``(model, optimizer, scheduler, frozen_prefixes)``: the detector of
     ``cfg`` with its ``train_cfg`` and seeded random weights, its NonLocal
-    ``conv_out`` (zero at init) made nonzero so the attention's gradient
-    path is live, and the bench's optimizer: SGD lr 0.02, momentum 0.9,
-    weight decay 1e-4, linear warmup over 500 iterations from ratio 0.001,
-    the config's ``frozen_stages``."""
+    ``conv_out`` (zero at init; where the neck has one) made nonzero so the
+    attention's gradient path is live, and the bench's optimizer: SGD lr
+    0.02, momentum 0.9, weight decay 1e-4, linear warmup over 500
+    iterations from ratio 0.001, the config's ``frozen_stages``."""
     from ..apis import init_detector
     model = init_detector(cfg, device=device, train=True)
     gen = torch.Generator().manual_seed(seed)
+    refine = refine_block(model)
     with torch.no_grad():
-        w = model.neck[1].refine.conv_out.conv.weight
-        w.copy_(torch.randn(w.shape, generator=gen) * 0.01)
+        if refine is not None:
+            w = refine.conv_out.conv.weight
+            w.copy_(torch.randn(w.shape, generator=gen) * 0.01)
     sched = build_lr_schedule(
         dict(policy='step', warmup='linear', warmup_iters=500,
              warmup_ratio=0.001, step=[8, 11]), 0.02, 1000)
@@ -112,50 +149,82 @@ def num_anchors(model, h, w):
                for s, n in zip(gen.strides, gen.num_base_anchors))
 
 
+def _drawing(sampler):
+    """The samplers whose draws ``sampler`` ranks: a combined sampler's
+    positive and negative ones, else itself."""
+    if hasattr(sampler, 'pos_sampler'):
+        return [sampler.pos_sampler, sampler.neg_sampler]
+    return [sampler]
+
+
 def sampled_candidates(model, num_gts, h, w):
     """Each sampler that draws, with the candidates it draws among: the
     dense head's over its anchors (none for a pseudo sampler), then each
     RoI head stage's over its gts (when it adds them) and proposals, or a
     cascade's later stage's over its gts and the previous stage's
-    samples."""
+    samples. A combined sampler's two samplers come in its place."""
     head = model.dense_head
     out = [(head.sampler, num_anchors(model, h, w))] if head.sampling \
         else []
     if model.roi_samplers:
         n = model.train_cfg['rpn_proposal']['nms_post']
         for sampler in model.roi_samplers:
-            out.append((sampler, n + num_gts * sampler.add_gt_as_proposals))
-            n = getattr(sampler, 'num', out[-1][1])
+            m = n + num_gts * sampler.add_gt_as_proposals
+            out += [(s, m) for s in _drawing(sampler)]
+            n = getattr(sampler, 'num', m)
     return out
 
 
 def fix_priorities(model, num_gts, h, w, seed=5):
-    """The same sampling priorities on every model: uniform draws from a
-    seeded CPU generator for each sampler's candidates
-    (:func:`sampled_candidates`), ``inf`` where a box is not a candidate."""
+    """The same sampling draws on every model: each sampler's uniform draws
+    (``_uniform``, one set for the positives and one for the negatives)
+    come from a seeded CPU generator for its candidates
+    (:func:`sampled_candidates`), ``inf`` where a box is not a candidate.
+    The priorities are still built from them as each sampler builds them:
+    instance-balanced positives rank within their gts, IoU-balanced
+    negatives within their IoU bins, OHEM's by their hard scores."""
     gen = torch.Generator().manual_seed(seed)
     for sampler, n in sampled_candidates(model, num_gts, h, w):
-        pos, neg = (torch.rand(n, generator=gen) for _ in range(2))
+        draws = {side: torch.rand(n, generator=gen)
+                 for side in ('pos', 'neg')}
 
-        def fixed(p):
-            return lambda g, cand, ctx: torch.where(
-                cand, p.to(cand.device), float('inf'))
-        sampler._pos_priority = fixed(pos)
-        sampler._neg_priority = fixed(neg)
+        def fixed(g, cand, side, draws=draws):
+            return torch.where(cand, draws[side].to(cand.device),
+                               float('inf'))
+        sampler._uniform = fixed
 
 
-def loss_and_grads(model, batch, seed=5):
+def loss_and_grads(model, batch, seed=5, hard_scores=None, seen=None):
     """Losses and parameter gradients (on the CPU) of one ``forward_train``
-    + backward on the model's device, with the fixed sampling priorities."""
+    + backward on the model's device, with the fixed sampling draws. For a
+    model whose RoI sampler takes OHEM's hard scores, the scores it
+    computes, the candidates' assignment and their boxes are appended to
+    ``seen`` (on the CPU), and ``hard_scores``, where given, rank the
+    candidates in their place."""
     dev = next(model.parameters()).device
     _, h, w, _ = batch['img'].shape
     fix_priorities(model, batch['gt_bboxes'].shape[1], h, w, seed)
     model.zero_grad(set_to_none=True)
     crops = batch.get('gt_mask_crops')
-    total, logs = parse_losses(model.forward_train(
-        *[batch[k].to(dev) for k in BATCH_KEYS], None,
-        gt_mask_crops=None if crops is None else crops.to(dev)))
-    total.backward()
+    mining = any(s.needs_hard_scores for s in model.roi_samplers)
+    if mining:
+        head = model.roi_head
+        scores = head._candidate_hard_scores
+
+        def shared(feats, boxes, assigned, gt_labels):
+            own = scores(feats, boxes, assigned, gt_labels)
+            if seen is not None:
+                seen.append((own.cpu(), assigned.cpu(), boxes.cpu()))
+            return own if hard_scores is None else hard_scores.to(own.device)
+        head._candidate_hard_scores = shared
+    try:
+        total, logs = parse_losses(model.forward_train(
+            *[batch[k].to(dev) for k in BATCH_KEYS], None,
+            gt_mask_crops=None if crops is None else crops.to(dev)))
+        total.backward()
+    finally:
+        if mining:
+            del head._candidate_hard_scores
     return ({k: float(v.detach()) for k, v in logs.items()},
             {k: p.grad.detach().cpu().clone()
              for k, p in model.named_parameters() if p.grad is not None})
@@ -175,35 +244,76 @@ def differences(a, b):
     return losses, grads
 
 
+def _hard_reading(sampler, cpu_seen, other_seen):
+    """Another run's OHEM hard scores against the CPU's: the largest
+    difference over the candidates whose boxes agree within 0.01 px (the
+    others are proposals that the two runs' RPNs chose differently), how
+    many do not agree, and how many candidates that run's own scores would
+    have sampled that the CPU's did not (over the batch)."""
+    (want, assigned, boxes), (got, _, other) = cpu_seen[0], other_seen[0]
+    same = (other - boxes).abs().amax(dim=-1) <= 0.01
+    err = (got - want).abs()[same].max().item()
+    a = sampler.sample(None, assigned, hard_scores=want)
+    b = sampler.sample(None, assigned, hard_scores=got)
+    flips = sum(len(set(a['inds'][i][a['valid'][i]].tolist())
+                    - set(b['inds'][i][b['valid'][i]].tolist()))
+                for i in range(assigned.shape[0]))
+    return err, int((~same).sum()), flips
+
+
 def compare_with_cpu(model, cpu, batch, seed=5):
     """One f32 ``forward_train`` + backward of ``batch`` on ``model`` (the
     card) and on ``cpu`` (the same weights, plain path), and once more on
-    the CPU with one thread, all with the same sampling priorities.
+    the CPU with one thread, all with the same sampling draws. With an
+    OHEM sampler each run computes its hard scores, which are held against
+    the CPU's, and then all three rank the candidates by the CPU's: a
+    difference of f32 rounding would otherwise swap near-ties in the
+    ranking and with them the sampled RoIs.
 
     Returns a dict: ``loss_err`` and ``loss_spread`` (per loss, relative;
     card against CPU, and the CPU with one thread against all), ``grad_err``
     and ``grad_spread`` (``(largest relative difference, parameter)``),
     ``params`` (how many parameters have a gradient), ``same_params``,
-    ``cpu_s``, ``threads``, ``ok`` under ``LOSS_RTOL`` / ``GRAD_RTOL``, and
-    ``cpu``, the CPU's :func:`loss_and_grads`.
+    ``cpu_s``, ``threads``, ``ok`` under ``LOSS_RTOL`` / ``GRAD_RTOL`` (and
+    ``HARD_RTOL``), ``cpu``, the CPU's :func:`loss_and_grads`, and with
+    OHEM ``hard``: the scores' largest value, and for the card and the
+    one-thread CPU their scores' largest difference from the CPU's over the
+    candidates with the CPU's boxes, how many candidates have other boxes,
+    and how many sampled candidates their own scores would have changed.
     """
     t0 = time.time()
-    want = loss_and_grads(cpu, batch, seed)
+    cpu_seen, alt_seen, card_seen = [], [], []
+    want = loss_and_grads(cpu, batch, seed, seen=cpu_seen)
     cpu_s = time.time() - t0
+    hard = cpu_seen[0][0] if cpu_seen else None
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        alt = loss_and_grads(cpu, batch, seed)
+        alt = loss_and_grads(cpu, batch, seed, hard, alt_seen)
     finally:
         torch.set_num_threads(threads)
-    got = loss_and_grads(model, batch, seed)
+    got = loss_and_grads(model, batch, seed, hard, card_seen)
     loss_spread, grad_spread = differences(want, alt)
     loss_err, grad_err = differences(want, got)
     same = sorted(got[1]) == sorted(want[1])
     ok = (all(loss_err[k] <= LOSS_RTOL + 4 * loss_spread[k]
               for k in loss_err)
           and grad_err[0] <= GRAD_RTOL and same and len(want[1]) > 100)
-    return dict(loss_err=loss_err, loss_spread=loss_spread,
-                grad_err=grad_err, grad_spread=grad_spread,
-                params=len(want[1]), same_params=same, cpu_s=cpu_s,
-                threads=threads, ok=ok, cpu=want)
+    out = dict(loss_err=loss_err, loss_spread=loss_spread,
+               grad_err=grad_err, grad_spread=grad_spread,
+               params=len(want[1]), same_params=same, cpu_s=cpu_s,
+               threads=threads, cpu=want)
+    if hard is not None:
+        sampler = cpu.roi_head.sampler
+        card_err, card_moved, card_flips = _hard_reading(sampler, cpu_seen,
+                                                         card_seen)
+        spread, spread_moved, spread_flips = _hard_reading(sampler, cpu_seen,
+                                                           alt_seen)
+        top = hard.abs().max().item()
+        out['hard'] = dict(max=top, err=card_err, moved=card_moved,
+                           flips=card_flips, spread=spread,
+                           spread_moved=spread_moved,
+                           spread_flips=spread_flips)
+        ok = ok and card_err <= HARD_RTOL * top + 4 * spread
+    out['ok'] = ok
+    return out

@@ -150,6 +150,43 @@
     retina_coco``): A once per iteration and per image, no B or C; the card
     against the CPU with the 0.05 threshold kept and the classifier's
     weights scaled up until each image has 10 detections.
+26. Serves Libra R-CNN + ARFE (R50,
+    ``configs/libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py``: AR-FPN at
+    refine level 3, N = 1050): the requests of 18, each A and B once; then
+    the card against the CPU as in 4.
+27. Holds kernel A at N = 1050 (as 23) and B (bit for bit, as 19) on the
+    first bs1 and bs2 Libra requests' arguments.
+28. Trains Libra at full width, bs2: two bf16 steps and one f32 with the
+    instance-balanced positives, IoU-balanced negatives and balanced L1,
+    each step A, B and C once, ``fc_reg`` moving; prints the first step's
+    sampling per gt and IoU bin, which must be round robin. Holds kernel C
+    on the first step's cotangent (R = 1024, 1e-5); the balanced sampler
+    on a skewed assignment on the card against the CPU (equal slots, round
+    robin); then a step against the CPU as in 6, with the same draws under
+    the balanced ranking.
+29. Trains and evaluates Libra through the CLIs as 21 (the config itself,
+    whose data section comes through ``_base_``; ``build/libra_coco``).
+30. Serves Libra R101 (``libra_faster_rcnn_r101_fpn_1x_coco.py``, each
+    residual block's last BatchNorm scale damped by ``R101_DAMP``): two
+    bs1 bf16 requests, A and B once each, against the CPU; then two bs2
+    bf16 steps, A, B and C once each, and its peak memory.
+31. Serves Libra RetinaNet (``libra_retinanet_r50_fpn_1x_coco.py``: BFP
+    at refine level 1 of five levels from stride 8, N = 50 x 84 = 4200):
+    A once, no B; against the CPU.
+32. Holds kernel A at N = 4200 on BFP's gathered feature of the first bs1
+    and bs2 requests, as 23.
+33. Trains Libra RetinaNet (balanced L1 at beta 0.11): A once a step, no B
+    or C; then a step against the CPU.
+34. Trains Faster R-CNN + OHEM (``faster_rcnn_r50_fpn_ohem_1x_coco.py``):
+    each step launches no A, B twice (the hard-mining forward over every
+    candidate, then the sampled RoIs) and C once (the hard-mining pass
+    builds no graph). Holds B on the first step's hard-mining RoIs (R = 2 x
+    1016) bit for bit, then a step against the CPU: each candidate's hard
+    score held against the CPU's, then all runs ranked by the CPU's.
+35. Serves OHEM's detector: no A, B once a request.
+36. Serves Faster R-CNN + BFP (``faster_rcnn_r50_fpn_bfp_1x_coco.py``: BFP
+    at refine level 2 of P2-P6, N = 4200): A and B once a request; against
+    the CPU.
 
 Prints each phase's wall seconds and the total, one JSON line of kernel
 numbers (``launches`` counts the flagship's training run,
@@ -158,10 +195,16 @@ those of AR-RFF and "+fac", ``launches_arrff_eval`` the two timed
 evaluation runs, ``launches_arrff_trainrun`` the two training runs of
 phase 13 with its validation, ``launches_mask_{serve,train,eval}`` those of
 phases 14, 16 and 17's test CLI, ``launches_{cascade,retina}_{serve,train,
-eval}`` those of phases 18, 20, 21 and 22, 24, 25; the ``_arrff_r*`` keys
+eval}`` those of phases 18, 20, 21 and 22, 24, 25,
+``launches_libra_{serve,train,eval}``, ``launches_libra101_{serve,train}``,
+``launches_libra_retina_{serve,train}``, ``launches_ohem_{serve,train}`` and
+``launches_bfp_serve`` those of phases 26-36; the ``_arrff_r*`` keys
 are kernels B and C at AR-RFF's shapes, the ``_mask_r*`` keys B and C at 14
 x 14 bins, the ``_cascade_s{i}_r*`` keys B and C on cascade stage i's
 inputs, the ``_retina_n1050*`` keys A at RetinaNet's refine level, the
+``_libra_n1050*``, ``_libra_r*`` keys A, B and C on Libra's arguments, the
+``_bfp_n4200*`` keys A at Libra RetinaNet's BFP level, the ``_ohem_r*`` keys
+B on OHEM's hard-mining RoIs, the
 ``_eval_*`` keys A and B on a real image's arguments, the ``train_run_*``
 keys phase 13's numbers, ``mask_paste_ms_per_image`` phase 17's), then the
 card's name and power limit, and as the last line ``{"ok": true, "device":
@@ -672,18 +715,21 @@ def check_kernels():
 
 def build_detector(cfg=FLAGSHIP_CFG, cls_scale=None):
     """A detector on the card with seeded random weights; the NonLocal
-    ``conv_out`` (zero at init) is made nonzero so the attention reaches the
-    outputs. With ``cls_scale`` the weights of ``model.classifiers()`` are
-    scaled by it, their biases kept, and ``conv_out`` is drawn on the CPU,
-    so that the weights do not depend on the device's generator."""
+    ``conv_out`` (zero at init; where the neck has one) is made nonzero so
+    the attention reaches the outputs. With ``cls_scale`` the weights of
+    ``model.classifiers()`` are scaled by it, their biases kept, and
+    ``conv_out`` is drawn on the CPU, so that the weights do not depend on
+    the device's generator."""
     from arfe_tpu_torch.apis import init_detector
     t0 = time.time()
     model = init_detector(cfg)
     dev = 'cuda' if cls_scale is None else 'cpu'
     gen = torch.Generator(device=dev).manual_seed(1)
+    refine = bench.refine_block(model)
     with torch.no_grad():
-        w = model.neck[1].refine.conv_out.conv.weight
-        w.copy_(torch.randn(w.shape, generator=gen, device=dev) * 0.01)
+        if refine is not None:
+            w = refine.conv_out.conv.weight
+            w.copy_(torch.randn(w.shape, generator=gen, device=dev) * 0.01)
         if cls_scale is not None:
             for layer in model.classifiers():
                 layer.weight.mul_(cls_scale)
@@ -698,7 +744,8 @@ def serve(model, requests):
     bench.py:221 feeds them; the first request of a shape or dtype also
     pays one-time set-up, such as cuDNN's algorithm choice, so each comes
     twice). Returns the kernel launches of the run, whether every request
-    launched kernel A once and kernel B exactly ``model.num_extractions``
+    launched kernel A once (never without a NonLocal refine in the neck)
+    and kernel B exactly ``model.num_extractions``
     times (one extraction of all its RoIs per RoI head stage: a cascade's
     three, a Mask R-CNN's boxes' 7 x 7 and its detections' 14 x 14 bins, a
     single-stage detector none) and gave finite detections (and mask
@@ -712,6 +759,7 @@ def serve(model, requests):
     gen = torch.Generator(device='cuda').manual_seed(2)
     ok = True
     with_mask, n_b = model.with_mask, model.num_extractions
+    n_a = int(bench.refine_block(model) is not None)
     fa.launches = ra.launches = 0
     for i, (b, dt) in enumerate(requests):
         stage = [0]
@@ -748,7 +796,7 @@ def serve(model, requests):
         dets, labels, valid = out[:3]
         da, dr = fa.launches - a0, ra.launches - r0
         good = (dets.shape == (b, 100, 5) and labels.shape == (b, 100)
-                and bool(torch.isfinite(dets).all()) and da == 1
+                and bool(torch.isfinite(dets).all()) and da == n_a
                 and dr == n_b and len(out) == 3 + with_mask)
         rois = ' + '.join(f'{args[b, dt, "stage", j][1].shape[0]}'
                           for j in range(stage[0])) + ' RoIs' \
@@ -838,7 +886,7 @@ def reference_check(model, cfg=FLAGSHIP_CFG):
 # --------------------------------------------------------------------------
 
 def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
-          must_move=()):
+          must_move=(), census=False, prepare=None):
     """Bs2 training steps at 800x1344 of the ``cfg`` detector, one per entry
     of ``dtypes`` (with the bench's random mask crops for a mask head).
     Returns the model, its parameters before the first step, the kernel
@@ -847,22 +895,31 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
     launch of each) and in the order of its launches (under ``'all'``),
     and whether every step gave finite losses (a "+fac" head's
     ``loss_multi_cls`` and a mask head's ``loss_mask`` among them) and
-    launched kernel A once and B and C ``model.num_extractions`` times each
-    (once, twice with a mask head, three times in a cascade, never in a
-    single-stage detector), the frozen parameters
+    launched kernel A once (never without a NonLocal refine in the neck)
+    and B and C ``model.num_extractions`` times each (once, twice with a
+    mask head, three times in a cascade, never in a single-stage
+    detector; B once more with OHEM's hard mining, whose forward over
+    every candidate builds no graph), the frozen parameters
     stayed without a gradient, every trainable tensor moved whose gradient
     was, in some step, large enough for the step to move it in f32 (the
     others are named: those with a gradient exactly 0 in every step, and
     those whose gradient the warm-up learning rate scales below rounding),
     and every tensor of the ``must_move`` modules moved (a name of the
-    bbox head's, or a dotted prefix)."""
+    bbox head's, or a dotted prefix). The first step's B launches keep
+    their arguments, in order, under ``'forward'``. With ``census`` the
+    RoI sampler's choice in the first step is printed
+    (:func:`_sampler_census`). ``prepare`` adjusts the seeded weights
+    before the first step."""
     from arfe_tpu_torch.ops import fused_attention as fa
     from arfe_tpu_torch.ops import roi_align as ra
     from arfe_tpu_torch.train import make_train_step
     t0 = time.time()
     model, opt, scheduler, frozen = bench.build_trainer(cfg)
+    if prepare is not None:
+        prepare(model)
     step = make_train_step(model, opt, scheduler)
     with_mask, n_b = model.with_mask, model.num_extractions
+    n_a, n_fwd, _ = bench.step_launches(model)
     batches = {dt: bench.synthetic_batch(2, dtype=dt, masks=with_mask)
                for dt in set(dtypes)}
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
@@ -892,12 +949,13 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
     # kernel C's cotangent, RoIs and levels in the first step, for timing,
     # and the RoIs of that step's B launches, in the forward's order
     kernel_b, kernel_c = ra.roi_align_cuda, ra.roi_align_backward_cuda
-    step_args, fwd_rois = {'all': []}, []
+    step_args, fwd_rois = {'all': [], 'forward': []}, []
 
-    def keep_rois(feats, rois, *args, **kwargs):
-        if ra.launches < n_b:
+    def keep_rois(feats, rois, lvls, *args, **kwargs):
+        if ra.launches < n_fwd:
             fwd_rois.append(rois.clone())
-        return kernel_b(feats, rois, *args, **kwargs)
+            step_args['forward'].append((feats, rois.clone(), lvls.clone()))
+        return kernel_b(feats, rois, lvls, *args, **kwargs)
 
     def keep_args(g, rois, lvls, shapes, *args, **kwargs):
         if ra.bwd_launches < n_b:
@@ -908,6 +966,17 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
     ra.roi_align_cuda, ra.roi_align_backward_cuda = keep_rois, keep_args
     gen = torch.Generator(device='cuda').manual_seed(4)
     ok = True
+    chosen = []
+    if census:
+        sample = model.roi_head.sampler.sample
+
+        def keep_sample(g, assigned, **ctx):
+            out = sample(g, assigned, **ctx)
+            if not chosen:
+                chosen.append((assigned.clone(), ctx['max_overlaps'].clone(),
+                               {k: v.clone() for k, v in out.items()}))
+            return out
+        model.roi_head.sampler.sample = keep_sample
     fa.launches = ra.launches = ra.bwd_launches = 0
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -933,7 +1002,7 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
             movable = {k: movable[k] or b for k, b in zip(trainable, big)}
             top = (sampled['weights'][:, -n_top:] > 0).sum(-1).tolist()
             good = all(np.isfinite(v) for v in logs.values()) \
-                and grew == [1, n_b, n_b] \
+                and grew == [n_a, n_fwd, n_b] \
                 and ('loss_multi_cls' in logs
                      or not model.with_multi_cls) \
                 and ('loss_mask' in logs) == with_mask
@@ -948,7 +1017,11 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
                   f'{top} {"ok" if good else "FAIL"}')
     finally:
         del rpn._targets
+        if census:
+            del model.roi_head.sampler.sample
         ra.roi_align_cuda, ra.roi_align_backward_cuda = kernel_b, kernel_c
+    if census:
+        ok = _sampler_census(*chosen[0]) and ok
     # the backward runs in autograd's order, not the forward's: each C
     # launch's forward B launch (a cascade's stage), found by its RoIs
     step_args['forward_index'] = [
@@ -973,8 +1046,10 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
         k.startswith(m if '.' in m else f'roi_head.bbox_head.{m}.')
         for m in must_move)]
     mine_stuck = [k for k in mine if k in unchanged]
-    theta = model.neck[1].refine.theta.conv.weight.grad
-    live = theta is not None and float(theta.abs().max()) > 0
+    refine = bench.refine_block(model)
+    theta = None if refine is None else refine.theta.conv.weight.grad
+    live = refine is None or (theta is not None
+                              and float(theta.abs().max()) > 0)
     good = not frozen_moved and not no_grad and not stuck and live \
         and not mine_stuck and len(mine) >= 2 * len(must_move)
     print(f'train parameters: {len(trainable) - len(unchanged)} of '
@@ -987,12 +1062,44 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
           f'gradient {no_grad[:3]}; attention gradient live {live}; of '
           f'{must_move} {len(mine) - len(mine_stuck)} of {len(mine)} tensors '
           f'moved {"ok" if good else "FAIL"}')
-    for dt, batch in batches.items():
+    ar_fpn = hasattr(model.neck[-1], 'reduce_convs')
+    for dt, batch in batches.items() if ar_fpn else ():
         print(f'AR-FPN attention-map convs per level in {str(dt)[6:]}, '
               'outputs positive before the ReLU and of those unsaturated by '
               'tanh (reduce_convs: positive, unsaturated; reduce_convs2: the '
               f'same; of): {reduce_conv_activity(model, batch["img"])}')
     return model, before, launches, step_args, ok and good
+
+
+def _sampler_census(assigned, overlaps, out):
+    """How the RoI sampler spread its choice in a step, image by image: the
+    positives per gt against each gt's candidates, and the negatives per
+    IoU bin (thirds of [0, 0.5), the IoU-balanced sampler's) against each
+    bin's. Balanced sampling (Libra) takes round robin: a gt or a bin short
+    of the most taken by more than one has given all it has. Returns
+    whether that holds."""
+    ok = True
+    for i in range(assigned.shape[0]):
+        a, inds = assigned[i], out['inds'][i]
+        pos, valid = out['is_pos'][i], out['valid'][i]
+        g = int(a.max()) + 1
+        bins = torch.clamp((overlaps[i] / 0.5 * 3).int(), 0, 2).long()
+        pairs = [(torch.bincount(a[a > 0], minlength=g)[1:],
+                  torch.bincount(a[inds[pos & valid]], minlength=g)[1:]),
+                 (torch.bincount(bins[a == 0], minlength=3),
+                  torch.bincount(bins[inds[valid & ~pos]], minlength=3))]
+        good = True
+        for have, took in pairs:
+            top = int(took.max()) if took.numel() else 0
+            good = good and all(t == h or t >= top - 1 for t, h in zip(
+                took.tolist(), have.tolist()))
+        ok = ok and good
+        pos, neg = ([(t, h) for h, t in zip(have.tolist(), took.tolist())]
+                    for have, took in pairs)
+        print(f'sampler census, image {i}: positives per gt (taken of '
+              f'candidates) {pos}; negatives per IoU third of [0, 0.5) '
+              f'{neg} {"ok" if good else "FAIL"}')
+    return ok
 
 
 def reduce_conv_activity(model, img):
@@ -1058,6 +1165,17 @@ def train_reference_check(model, start, cfg=FLAGSHIP_CFG, readings=True):
           f'{r["grad_spread"][0]:.2e} at {r["grad_spread"][1]}; tol '
           f'{bench.GRAD_RTOL:g}) over {r["params"]} parameters '
           f'{"ok" if r["ok"] else "FAIL"}')
+    if 'hard' in r:
+        hard = r['hard']
+        print(f'train reference, OHEM hard scores (largest {hard["max"]:.4f})'
+              f': the card {hard["err"]:.3e} off the CPU\'s, the CPU on 1 '
+              f'thread {hard["spread"]:.3e} (tol {bench.HARD_RTOL:g} x '
+              f'largest + 4x) over the candidates with the CPU\'s boxes '
+              f'(other boxes: card {hard["moved"]}, CPU 1 thread '
+              f'{hard["spread_moved"]}); the RoIs their own scores would '
+              f'have sampled other than the CPU\'s: card {hard["flips"]}, '
+              f'CPU 1 thread {hard["spread_flips"]} of 2 x 512; all three '
+              f'runs ranked by the CPU\'s scores')
     if readings:
         print('the same check against kernel C with one level\'s gradient '
               'scaled by 1.03 reads, for levels 0-3: '
@@ -1098,7 +1216,8 @@ def level_error_readings(model, batch, r, scale=1.03):
 # 320x480 on the CPU: 29 and 18 detections score >= 0.1, the 100th 0.075
 # and 0.082).
 CLS_SCALE = {'arrff': 0.1, 'fac': 0.006, 'mask': 1.0, 'cascade': 2.0,
-             'retina': 7.0}
+             'retina': 7.0, 'libra': 1.2, 'libra101': 1.0,
+             'libra_retina': 5.0, 'bfp': 1.0}
 # Mask R-CNN's classifier is the flagship's and does not saturate (at
 # 320x480: 19 detections score >= 0.1, the 100th 0.067); its entry draws
 # conv_out on the CPU, as the others do. Cascade R-CNN averages its three
@@ -1106,7 +1225,10 @@ CLS_SCALE = {'arrff': 0.1, 'fac': 0.006, 'mask': 1.0, 'cascade': 2.0,
 # 100th 0.068). RetinaNet's entry scales the classifier's weights, its bias
 # (the prior 0.01) kept: at random weights every score sits at the prior,
 # under the 0.05 threshold (at 7: 11 detections score >= 0.1, the 100th
-# 0.075)
+# 0.075). Libra at 1.2: 48 score >= 0.1, the 100th 0.091; R101 (its
+# residual branches damped, ``damp_residuals``) at 1: 38, 0.089; Libra
+# RetinaNet at 5: 3, 0.086; Faster + BFP at 1: 32, 0.071 (all on the CPU at
+# 320x480).
 
 
 def _roi_census(rois, lvls, what):
@@ -2212,54 +2334,60 @@ RETINA_PORT_CFG = 'arfe_tpu_torch/configs/retinanet_r50_arfpn_1x_coco.py'
 RETINA_SPREAD_SCALES = tuple(2.0 ** i for i in range(14))
 
 
-def check_roi_align_stages(args, stages=3):
-    """Kernel B against ``roi_align_pyramid_plain`` on each cascade stage's
-    RoIs, levels and features in the first bs1 and bs2 requests (R = 1000,
-    2000 a stage: stage 0 the RPN's proposals, stages 1 and 2 the boxes the
-    previous stage regressed), bf16 and f32 (the bs2 levels cast to f32;
-    bs1's from the f32 request): equal bit for bit; each timed by graph
-    replay beside its bound and the plain version's time."""
+def _roi_align_bit_for_bit(feats, rois, lvls, dt, what, key, row):
+    """Kernel B against ``roi_align_pyramid_plain`` on these arguments, the
+    levels cast to ``dt``: equal bit for bit; timed by graph replay beside
+    its bound and the plain version's time, which go into ``row`` under
+    ``key`` (``_f32`` appended in f32). Returns whether it was equal."""
     from arfe_tpu_torch.ops import roi_align as ra
     strides = (4, 8, 16, 32)
+    feats = [f.to(dt) for f in feats]
+    num = rois.shape[0]
+
+    def kernel():
+        return ra.roi_align_cuda(feats, rois, lvls, (7, 7), strides, 2, True)
+
+    def plain():
+        return ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7), strides,
+                                          2, True)
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    same = torch.equal(got, ref) and bool(torch.isfinite(got).all())
+    del got, ref
+    ms = cuda_ms(kernel, graph=True)
+    plain_ms = cuda_ms(plain, iters=5)
+    bound, touched = _roi_align_bound(feats, rois, lvls, strides)
+    print(f'roi_align {what} R={num} {str(dt)[6:]} (per level '
+          f'{torch.bincount(lvls.long(), minlength=4).tolist()}): equal to '
+          f'the plain version bit for bit {same}, max_abs_err {err:.3e}; '
+          f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms '
+          f'({touched} distinct pixels) {"ok" if same else "FAIL"}')
+    key += '_f32' if dt == torch.float32 else ''
+    row.update({'max_abs_err' + key: err, 'ms' + key: ms,
+                'plain_ms' + key: plain_ms, 'bound_ms' + key: bound})
+    return same
+
+
+def check_roi_align_stages(args, stages=3, prefix='_cascade',
+                           what='cascade'):
+    """Kernel B (:func:`_roi_align_bit_for_bit`) on each RoI head stage's
+    RoIs, levels and features in the first bs1 and bs2 requests (R = 1000,
+    2000 a stage: stage 0 the RPN's proposals, a cascade's stages 1 and 2
+    the boxes the previous stage regressed), bf16 and f32 (the bs2 levels
+    cast to f32; bs1's from the f32 request). The row's keys are
+    ``{prefix}_s{i}_r{R}`` (``{prefix}_r{R}`` for one stage)."""
     ok, row = True, {}
     for b in (1, 2):
         for dt in (torch.bfloat16, torch.float32):
             for i in range(stages):
                 feats, rois, lvls = args.get((b, dt, 'stage', i)) \
                     or args[b, torch.bfloat16, 'stage', i]
-                feats = [f.to(dt) for f in feats]
-                num = rois.shape[0]
-
-                def kernel():
-                    return ra.roi_align_cuda(feats, rois, lvls, (7, 7),
-                                             strides, 2, True)
-
-                def plain():
-                    return ra.roi_align_pyramid_plain(feats, rois, lvls,
-                                                      (7, 7), strides, 2,
-                                                      True)
-                got, ref = kernel(), plain()
-                torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs().max().item()
-                same = torch.equal(got, ref) \
-                    and bool(torch.isfinite(got).all())
-                del got, ref
-                ok = ok and same
-                ms = cuda_ms(kernel, graph=True)
-                plain_ms = cuda_ms(plain, iters=5)
-                bound, touched = _roi_align_bound(feats, rois, lvls, strides)
-                print(f'roi_align cascade stage {i} R={num} B={b} '
-                      f'{str(dt)[6:]} (per level '
-                      f'{torch.bincount(lvls.long(), minlength=4).tolist()}):'
-                      f' equal to the plain version bit for bit {same}, '
-                      f'max_abs_err {err:.3e}; kernel {ms:.4f} ms, plain '
-                      f'{plain_ms:.4f} ms, bound {bound:.4f} ms ({touched} '
-                      f'distinct pixels) {"ok" if same else "FAIL"}')
-                key = f'_cascade_s{i}_r{num}' + (
-                    '_f32' if dt == torch.float32 else '')
-                row.update({'max_abs_err' + key: err, 'ms' + key: ms,
-                            'plain_ms' + key: plain_ms,
-                            'bound_ms' + key: bound})
+                stage = f'_s{i}' if stages > 1 else ''
+                ok = _roi_align_bit_for_bit(
+                    feats, rois, lvls, dt,
+                    f'{what}{f" stage {i}" if stages > 1 else ""} B={b}',
+                    f'{prefix}{stage}_r{rois.shape[0]}', row) and ok
     return ok, row
 
 
@@ -2272,14 +2400,16 @@ def _empty_split_count(n, dtype):
                 if -(-tiles // -(-tiles // s)) < s)
 
 
-def check_attention_retina(args):
+def check_attention_level(args, prefix='_retina', what='RetinaNet'):
     """Kernel A on the NonLocal refine level of the first bs1 and bs2
-    RetinaNet requests (N = 25 x 42 = 1050 tokens at stride 32 of 800x1344,
-    ragged in the query and the key tiles), bf16 and f32 (the bs2 inputs
-    cast to f32): against the plain version (in f32 also the exact f64
-    result, phase 12's rule), with the split count ``key_splits`` picks and
-    with a forced count that leaves splits without keys; timed by graph
-    replay beside its bound, the plain version and SDPA."""
+    requests (RetinaNet's and Libra's: N = 25 x 42 = 1050 tokens at stride
+    32 of 800x1344; BFP's: N = 50 x 84 = 4200 at stride 16), bf16 and f32
+    (the bs2 inputs cast to f32): against the plain version (in f32 also
+    the exact f64 result, phase 12's rule), with the split count
+    ``key_splits`` picks and with a forced count that leaves splits without
+    keys; timed by graph replay beside its bound, the plain version and
+    SDPA. The row's keys are ``{prefix}_n{N}``, ``_b2`` and ``_f32``
+    appended."""
     from arfe_tpu_torch.ops import fused_attention as fa
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ok, row = True, {}
@@ -2323,7 +2453,7 @@ def check_attention_retina(args):
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, scale=1.0), graph=True)
             bound, by = _attention_bound(b, n, c, dt)
-            print(f'attention RetinaNet refine level B={b} N={n} '
+            print(f'attention {what} refine level B={b} N={n} '
                   f'{str(dt)[6:]}, max |v| {v.float().abs().max().item():.2f}'
                   f', splits {splits} ({-(-n // fa.TILES[dt][0]) * b * splits}'
                   f' blocks): max_abs_err {err:.3e} against plain (tol '
@@ -2331,7 +2461,7 @@ def check_attention_retina(args):
                   f'keys) {err_empty:.3e}; kernel {ms:.4f} ms, plain '
                   f'{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound '
                   f'{bound:.4f} ms ({by}) {"ok" if good else "FAIL"}')
-            key = '_retina_n1050' + ('_b2' if b == 2 else '') + (
+            key = f'{prefix}_n{n}' + ('_b2' if b == 2 else '') + (
                 '_f32' if dt == torch.float32 else '')
             row.update({'max_abs_err' + key: err, 'ms' + key: ms,
                         'plain_ms' + key: plain_ms,
@@ -2405,7 +2535,7 @@ def retinanet(requests, train_dtypes):
     del model
     torch.cuda.empty_cache()
     with phase('retina: kernel A at N = 1050'):
-        results['kernel_a'], rows[0] = check_attention_retina(args)
+        results['kernel_a'], rows[0] = check_attention_level(args)
     del args
     with phase('retina: train'):
         model, start, launches_train, _, results['train'] = train(
@@ -2526,6 +2656,229 @@ def train_and_evaluate(name, port_cfg, root, n_b, name_limit):
     return ok, launches
 
 
+# --------------------------------------------------------------------------
+# phases 26-36: Libra R-CNN + ARFE at R50 and R101, Libra RetinaNet with
+# BFP, Faster R-CNN with OHEM and with BFP
+# --------------------------------------------------------------------------
+
+# R101's residual branches at the seeded random weights: stage 3's 23
+# blocks grow the features to ~6e4 (R50's reach ~50), every served score
+# rounds to one value and the detections' order is a tie. Each block's
+# last BatchNorm scale is damped by this factor, which keeps them at R50's
+# size (stage 4's output ~70 at 320x480 on the CPU).
+R101_DAMP = 0.6
+
+
+def damp_residuals(model, factor=R101_DAMP):
+    """Scales each residual block's last BatchNorm weight (``bn3``) of the
+    backbone by ``factor``."""
+    with torch.no_grad():
+        for name, p in model.backbone.named_parameters():
+            if name.endswith('bn3.weight'):
+                p.mul_(factor)
+    return model
+
+
+def check_balanced_sampler(model, num_gts=16):
+    """The detector's RoI sampler (Libra's: instance-balanced positives,
+    IoU-balanced negatives) on the card against the CPU, on one skewed
+    assignment of two images' ``nms_post + num_gts`` candidates (a random
+    step's proposals overlap no gt by more than 1/6, so its sampling takes
+    the balanced ranking through no choice): 191 positives over 8 gts in
+    counts 100 to 1 and negatives whose IoUs crowd the lowest bin, the
+    draws fixed by ``bench.fix_priorities``. The slots must be equal and
+    the CPU's choice round robin (:func:`_sampler_census`); the card's
+    sampling is timed (events, not a graph)."""
+    sampler = model.roi_head.sampler
+    n = model.train_cfg['rpn_proposal']['nms_post'] + num_gts
+    r = np.random.RandomState(8)
+    assigned = np.zeros((2, n), np.int64)
+    overlaps = 0.5 * r.uniform(size=(2, n)) ** 4
+    pos = np.repeat(np.arange(1, 9), [100, 50, 20, 10, 5, 3, 2, 1])
+    for i in range(2):
+        slots = r.permutation(n)[:len(pos)]
+        assigned[i, slots] = pos
+        overlaps[i, slots] = r.uniform(0.5, 1.0, len(pos))
+    assigned[:, r.permutation(n)[:40]] = -1
+    bench.fix_priorities(model, num_gts, H, W)
+    cpu = [torch.from_numpy(assigned), torch.from_numpy(
+        overlaps.astype(np.float32))]
+    card_args = [t.cuda() for t in cpu]
+
+    def sample(a, o):
+        return sampler.sample(None, a, max_overlaps=o, num_gts=num_gts)
+    want, got = sample(*cpu), sample(*card_args)
+    same = all(torch.equal(got[k].cpu(), want[k]) for k in want)
+    ms = cuda_ms(lambda: sample(*card_args), iters=10)
+    print(f'balanced sampler ({type(sampler.pos_sampler).__name__}, '
+          f'{type(sampler.neg_sampler).__name__}) on 2 x {n} candidates: '
+          f'the card\'s slots equal to the CPU\'s {same}; {ms:.4f} ms on '
+          f'the card {"ok" if same else "FAIL"}')
+    return _sampler_census(cpu[0], cpu[1], want) and same
+
+
+def libra(requests, train_dtypes, name_limit):
+    """Libra R-CNN + ARFE (R50, ``configs/libra_rcnn/libra_faster_rcnn_r50_
+    fpn_1x_coco.py``): (a) served (A once, at AR-FPN's refine level 3, N =
+    1050; B once) and against the CPU; (b) kernels A and B on the requests'
+    arguments; (c) trained with the balanced samplers and balanced L1 (A,
+    B and C once a step; the first step's sampling census), C on the first
+    step's cotangent and RoIs, the balanced sampler on a skewed assignment
+    against the CPU, a step against the CPU; (d) the train and
+    test CLIs (``train_and_evaluate``). Returns each check's result, the
+    serving, training and evaluation runs' launches, and the rows'
+    additions for A, B and C."""
+    cfg = bench.LIBRA_CFG
+    results, rows = {}, [{}, {}, {}]
+    with phase('libra: serve'):
+        model = build_detector(cfg, CLS_SCALE['libra'])
+        launches_serve, results['serve'], args = serve(model, requests)
+    with phase('libra: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase('libra: kernels A at N = 1050 and B on the requests'):
+        results['kernel_a'], rows[0] = check_attention_level(
+            args, '_libra', 'Libra + ARFE')
+        results['kernel_b'], rows[1] = check_roi_align_stages(
+            args, 1, '_libra', 'Libra + ARFE')
+    del args
+    with phase('libra: train'):
+        model, start, launches_train, step_args, results['train'] = train(
+            cfg, train_dtypes, ('fc_reg',), census=True)
+    with phase('libra: kernel C on a step'):
+        results['kernel_c'], rows[2] = check_roi_align_bwd_step(
+            step_args[7], key='_libra_r1024', plain=True)
+    del step_args
+    with phase('libra: balanced sampler, card against CPU'):
+        results['sampler'] = check_balanced_sampler(model)
+    with phase('libra: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    with phase('libra: train and evaluate through the CLIs'):
+        results['evaluate'], launches_eval = train_and_evaluate(
+            'libra', cfg, 'build/libra_coco', 1, name_limit)
+    return results, launches_serve, launches_train, rows, launches_eval
+
+
+def libra101(train_dtypes):
+    """Libra R-CNN + ARFE at R101 (``libra_faster_rcnn_r101_fpn_1x_coco.
+    py``; its residual branches damped, :data:`R101_DAMP`): served bs1
+    (A and B once) and against the CPU, then trained at bs2 (A, B and C
+    once a step), its peak memory printed. Returns each check's result and
+    the serving and training runs' launches."""
+    cfg = bench.LIBRA101_CFG
+    results = {}
+    with phase('libra101: serve'):
+        model = build_detector(cfg, CLS_SCALE['libra101'])
+        damp_residuals(model)
+        launches_serve, results['serve'], _ = serve(
+            model, [(1, torch.bfloat16)] * 2)
+        print(f'R101 stage 3 blocks: {len(model.backbone.layer3)}')
+    with phase('libra101: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase('libra101: train'):
+        model, _, launches_train, _, results['train'] = train(
+            cfg, train_dtypes, prepare=damp_residuals)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train
+
+
+def libra_retina(requests, train_dtypes):
+    """Libra RetinaNet (``libra_retinanet_r50_fpn_1x_coco.py``: BFP at
+    refine level 1 of P3-P7, balanced L1 at beta 0.11): (a) served (A once,
+    at stride 16: N = 50 x 84 = 4200; no B) and against the CPU; (b) kernel
+    A on BFP's gathered feature of the requests; (c) trained (A once, no B
+    or C) and a step against the CPU. Returns each check's result, the
+    serving and training runs' launches, and the row's additions for A."""
+    cfg = bench.LIBRA_RETINA_CFG
+    results, rows = {}, [{}, {}, {}]
+    with phase('libra_retina: serve'):
+        model = build_detector(cfg, CLS_SCALE['libra_retina'])
+        launches_serve, results['serve'], args = serve(model, requests)
+    with phase('libra_retina: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase('libra_retina: kernel A at N = 4200'):
+        results['kernel_a'], rows[0] = check_attention_level(
+            args, '_bfp', 'BFP (Libra RetinaNet)')
+    del args
+    with phase('libra_retina: train'):
+        model, start, launches_train, _, results['train'] = train(
+            cfg, train_dtypes, ('bbox_head.retina_reg',
+                                'bbox_head.retina_cls'))
+    with phase('libra_retina: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, rows
+
+
+def ohem(requests, train_dtypes):
+    """Faster R-CNN + OHEM (``faster_rcnn_r50_fpn_ohem_1x_coco.py``, plain
+    FPN): (a) trained (no A; B twice a step, once for the hard-mining
+    forward over every candidate, once for the sampled RoIs; C once: the
+    hard-mining pass builds no graph), (b) kernel B on the first step's
+    hard-mining RoIs (bs2: 2 x (1000 + 16)), bit for bit, (c) a step
+    against the CPU with the hard scores held and then shared, (d) served
+    (B once, no A). Returns each check's result, the serving and training
+    runs' launches, and the row's additions for B."""
+    cfg = bench.OHEM_CFG
+    results, row = {}, {}
+    with phase('ohem: train'):
+        model, start, launches_train, step_args, results['train'] = train(
+            cfg, train_dtypes, ('fc_cls', 'fc_reg'))
+    with phase('ohem: kernel B on the hard-mining RoIs'):
+        feats, rois, lvls = step_args['forward'][0]
+        want = 2 * (model.train_cfg['rpn_proposal']['nms_post'] + 16)
+        ok = rois.shape[0] == want and len(step_args['forward']) == 2
+        print(f'OHEM step: B launches {len(step_args["forward"])} over '
+              f'{[a[1].shape[0] for a in step_args["forward"]]} RoIs (the '
+              f'hard-mining pass over {want} expected first) '
+              f'{"ok" if ok else "FAIL"}')
+        for dt in (torch.bfloat16, torch.float32):
+            ok = _roi_align_bit_for_bit(feats, rois, lvls, dt,
+                                        'OHEM hard mining B=2',
+                                        f'_ohem_r{rois.shape[0]}', row) and ok
+        results['kernel_b'] = ok
+    del step_args, feats
+    with phase('ohem: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    with phase('ohem: serve'):
+        model = build_detector(cfg)
+        launches_serve, results['serve'], _ = serve(model, requests)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, row
+
+
+def faster_bfp(requests):
+    """Faster R-CNN + BFP (``faster_rcnn_r50_fpn_bfp_1x_coco.py``: BFP at
+    refine level 2 of P2-P6, stride 16, N = 4200): served (A and B once a
+    request) and against the CPU. Returns each check's result and the
+    serving run's launches."""
+    cfg = bench.BFP_CFG
+    results = {}
+    with phase('bfp: serve'):
+        model = build_detector(cfg, CLS_SCALE['bfp'])
+        launches_serve, results['serve'], _ = serve(model, requests)
+    with phase('bfp: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve
+
+
 PHASE_SECONDS = {}
 
 
@@ -2604,6 +2957,17 @@ def main():
     with phase('retina: train and evaluate through the CLIs'):
         ok_retina_eval, launches_retina_eval = train_and_evaluate(
             'retina', RETINA_PORT_CFG, 'build/retina_coco', 0, name_limit)
+    libra_r50 = libra([(1, bf)] * 2 + [(2, bf), (1, f32)], [bf, bf, f32],
+                      name_limit)
+    for row, more in zip(rows, libra_r50[3]):
+        row.update(more)
+    libra_r101 = libra101([bf, bf])
+    libra_ret = libra_retina([(1, bf)] * 2 + [(2, bf), (1, f32)],
+                             [bf, bf, f32])
+    rows[0].update(libra_ret[3][0])
+    ohem_runs = ohem([(1, bf)] * 2 + [(2, bf)], [bf, bf, f32])
+    rows[1].update(ohem_runs[3])
+    bfp = faster_bfp([(1, bf)] * 2 + [(2, bf)])
     for row in rows:
         row['launches'] = launches[row['name']]
         row['launches_serve'] = launches_serve.get(row['name'], 0)
@@ -2622,6 +2986,13 @@ def main():
             row[f'launches_{name}_serve'] = runs[1].get(row['name'], 0)
             row[f'launches_{name}_train'] = runs[2][row['name']]
             row[f'launches_{name}_eval'] = evaluated[row['name']]
+        for name, runs in (('libra', libra_r50), ('libra101', libra_r101),
+                           ('libra_retina', libra_ret), ('ohem', ohem_runs),
+                           ('bfp', bfp)):
+            row[f'launches_{name}_serve'] = runs[1].get(row['name'], 0)
+            if len(runs) > 2:
+                row[f'launches_{name}_train'] = runs[2][row['name']]
+        row['launches_libra_eval'] = libra_r50[4][row['name']]
     failed = [k for k, v in (('kernels', ok_kernels), ('serve', ok_serve),
                              ('reference', ok_ref), ('train', ok_train),
                              ('kernel C on a step', ok_step_rois),
@@ -2634,7 +3005,12 @@ def main():
     failed += [f'{name} {k}' for name, r in (('arrff', arrff), ('fac', fac),
                                              ('mask', mask),
                                              ('cascade', cascade),
-                                             ('retina', retina))
+                                             ('retina', retina),
+                                             ('libra', libra_r50),
+                                             ('libra101', libra_r101),
+                                             ('libra_retina', libra_ret),
+                                             ('ohem', ohem_runs),
+                                             ('bfp', bfp))
                for k, v in r[0].items() if not v]
     print(f'phases: {len(PHASE_SECONDS)}, total {time.time() - t0:.1f} s')
     if failed:

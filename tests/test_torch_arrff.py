@@ -31,6 +31,7 @@ from arfe_tpu.train import parse_losses as j_parse_losses
 from arfe_tpu_torch.apis import init_detector
 from arfe_tpu_torch.config import Config
 from arfe_tpu_torch.convert import params_to_state_dict
+from arfe_tpu_torch.layers import init_weights
 from arfe_tpu_torch.models import build_detector
 from arfe_tpu_torch.models import losses as tl
 from arfe_tpu_torch.models.builder import build_head
@@ -174,12 +175,15 @@ def test_cross_entropy_loss_builds_the_variants():
 # --------------------------------------------------------------------------
 
 def _heads(kind, c=16):
+    """The ``kind`` head on both sides, from the port's weights seeded with
+    1 as a JAX parameter tree (no JAX compilation of the head's ``init``),
+    loaded back through ``params_to_state_dict``."""
     cfg = dict(type=HEADS[kind], in_channels=c, fc_out_channels=32,
                roi_feat_size=7, num_classes=5)
     jh = j_build_head(dict(cfg))
-    params = jax.tree_util.tree_map(np.array, jax.jit(jh.init)(
-        jax.random.PRNGKey(1)))
     th = build_head(dict(cfg))
+    init_weights(th, torch.Generator().manual_seed(1))
+    params = state_dict_to_params(th.state_dict())
     th.load_state_dict(params_to_state_dict(params), strict=True)
     return jh, params, th
 

@@ -1,7 +1,8 @@
 """The slice as a whole: the tiny flagship Faster R-CNN + AR-FPN (R18, 64
 channels, 64 proposals, as ``__graft_entry__._build_flagship(tiny=True)``)
-in the port against the JAX package on the CPU, with the same weights
-(JAX params -> numpy -> ``params_to_state_dict``) and images."""
+in the port against the JAX package on the CPU, with the same weights (the
+port's seeded ones as a JAX parameter tree, ``state_dict_to_params``, and
+back through ``params_to_state_dict``) and images."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from __graft_entry__ import FLAGSHIP_CFG, _build_flagship
+from arfe_tpu.convert import state_dict_to_params
 from arfe_tpu.core.bbox.transforms import bbox2result as j_bbox2result
 from arfe_tpu_torch.apis import init_detector
 from arfe_tpu_torch.config import Config
@@ -39,6 +41,14 @@ def tiny_cfg():
     return cfg
 
 
+def port_params():
+    """The port's seeded random weights of the tiny flagship as a JAX
+    parameter tree: no JAX compilation (``jax.jit`` of the JAX package's
+    ``init`` takes ~6 s on the CPU)."""
+    model = init_detector(Config(tiny_cfg()), device='cpu')
+    return state_dict_to_params(model.state_dict())
+
+
 def _perturb(params, rng):
     """Non-trivial BN statistics, a nonzero NonLocal ``conv_out`` (zero at
     init, which would hide the attention), and spread-out classifiers."""
@@ -63,11 +73,8 @@ def _perturb(params, rng):
 @pytest.fixture(scope='module')
 def runs():
     jm = _build_flagship(tiny=True)
-    params = jax.tree_util.tree_map(
-        np.array, jax.jit(jm.init, compiler_options=FAST_COMPILE)(
-            jax.random.PRNGKey(0)))
     rng = np.random.RandomState(0)
-    params = _perturb(params, rng)
+    params = _perturb(port_params(), rng)
     img = (rng.randn(2, 128, 160, 3) * 0.2).astype(np.float32)
 
     jp = jax.tree_util.tree_map(jnp.asarray, params)

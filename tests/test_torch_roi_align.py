@@ -1,11 +1,15 @@
 """Kernel B's plain version and the RoI extractor against the JAX package on
 the CPU: the plain ``roi_align_pyramid`` for every kind of box, and the
-Pallas kernel (interpret mode) for the boxes its window covers."""
+Pallas kernel (interpret mode) for the boxes its window covers. The JAX
+references run compiled (``jax.jit``): op by op, each of their first calls
+compiles every primitive apart, which takes seconds."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from test_torch_detector import FAST_COMPILE
 
 from arfe_tpu.models.roi_heads.roi_extractors.single_level import \
     SingleRoIExtractor as JExtractor
@@ -63,9 +67,12 @@ def test_plain_matches_jax_pyramid(shift):
     rois = _edge_rois(1)
     lvls = np.clip(np.asarray(j_map_roi_levels(jnp.asarray(rois), 4, 56))
                    + shift, 0, 3).astype(np.int32)
-    want = np.asarray(j_roi_align_pyramid(
-        [jnp.asarray(f) for f in feats], jnp.asarray(rois), (7, 7), STRIDES,
-        56, 2, True, target_lvls=jnp.asarray(lvls)))
+    want = np.asarray(jax.jit(
+        lambda f, r, lv: j_roi_align_pyramid(f, r, (7, 7), STRIDES, 56, 2,
+                                             True, target_lvls=lv),
+        compiler_options=FAST_COMPILE)(
+            [jnp.asarray(f) for f in feats], jnp.asarray(rois),
+            jnp.asarray(lvls)))
     got = ra.roi_align_pyramid([torch.from_numpy(f) for f in feats],
                                torch.from_numpy(rois), torch.from_numpy(lvls),
                                (7, 7), STRIDES, 0, True)
@@ -85,9 +92,10 @@ def test_plain_matches_pallas_interpret():
     rois = np.concatenate([rng.randint(0, b, (r, 1)), xy, xy + wh],
                           1).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(roi_align_pallas(
-            [jnp.asarray(f) for f in feats], jnp.asarray(rois), (7, 7),
-            STRIDES, 56, 2, True))
+        want = np.asarray(jax.jit(
+            lambda f, r: roi_align_pallas(f, r, (7, 7), STRIDES, 56, 2, True),
+            compiler_options=FAST_COMPILE)(
+                [jnp.asarray(f) for f in feats], jnp.asarray(rois)))
     trois = torch.from_numpy(rois)
     got = ra.roi_align_pyramid([torch.from_numpy(f) for f in feats], trois,
                                ra.map_roi_levels(trois, 4, 56), (7, 7),
@@ -109,10 +117,11 @@ def test_extractor_matches_jax(extra):
         kw['roi_scale_factor'] = 1.5
     layer = dict(type='RoIAlign', out_size=7, sample_num=0)
     jx = JExtractor(layer, 16, STRIDES)
-    want = np.asarray(jx({}, [jnp.asarray(f) for f in feats],
-                         jnp.asarray(rois),
-                         **{k: jnp.asarray(v) if isinstance(v, np.ndarray)
-                            else v for k, v in kw.items()}))
+    jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    want = np.asarray(jax.jit(lambda f, r: jx({}, f, r, **jkw),
+                              compiler_options=FAST_COMPILE)(
+        [jnp.asarray(f) for f in feats], jnp.asarray(rois)))
     tx = SingleRoIExtractor(layer, 16, STRIDES)
     got = tx([torch.from_numpy(f.transpose(0, 3, 1, 2).copy())
               for f in feats], torch.from_numpy(rois),

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from test_torch_detector import FAST_COMPILE
 
 from arfe_tpu.ops import map_roi_levels as j_map_roi_levels
 from arfe_tpu.ops import roi_align_pyramid as j_roi_align_pyramid
@@ -90,12 +91,14 @@ def test_plain_backward_matches_jax_vjp(shift):
     rois = _edge_rois(21)
     lvls = _levels(rois, shift)
     g = _cotangent(len(rois), c, 22)
-    _, vjp = jax.vjp(
-        lambda f: j_roi_align_pyramid(list(f), jnp.asarray(rois), (7, 7),
-                                      STRIDES, 56, 2, True,
-                                      target_lvls=jnp.asarray(lvls)),
-        [jnp.asarray(f) for f in feats])
-    (want,) = vjp(jnp.asarray(g))
+
+    def feature_vjp(f, r, lv, cot):
+        _, vjp = jax.vjp(lambda x: j_roi_align_pyramid(
+            list(x), r, (7, 7), STRIDES, 56, 2, True, target_lvls=lv), f)
+        return vjp(cot)[0]
+    want = jax.jit(feature_vjp, compiler_options=FAST_COMPILE)(
+        [jnp.asarray(f) for f in feats], jnp.asarray(rois),
+        jnp.asarray(lvls), jnp.asarray(g))
     got = ra.roi_align_backward_plain(
         torch.from_numpy(g), torch.from_numpy(rois), torch.from_numpy(lvls),
         [f.shape for f in feats], (7, 7), STRIDES, 2)
@@ -123,9 +126,9 @@ def test_plain_backward_matches_pallas_interpret():
     ], np.float32)
     g = _cotangent(len(rois), c, 4)
     with pltpu.force_tpu_interpret_mode():
-        want = roi_align_pallas_bwd(jnp.asarray(g), jnp.asarray(rois),
-                                    [f.shape for f in feats], STRIDES, 56, 2,
-                                    True)
+        want = jax.jit(lambda cot, r: roi_align_pallas_bwd(
+            cot, r, [f.shape for f in feats], STRIDES, 56, 2, True),
+            compiler_options=FAST_COMPILE)(jnp.asarray(g), jnp.asarray(rois))
     trois = torch.from_numpy(rois)
     got = ra.roi_align_backward_plain(
         torch.from_numpy(g), trois, ra.map_roi_levels(trois, 4, 56),

@@ -1,8 +1,8 @@
 """The training slice as a whole on the CPU: the tiny flagship Faster R-CNN +
 AR-FPN (R18, 64 channels, 64 proposals, 128x160, as
 ``__graft_entry__._build_flagship(tiny=True)``) in the port against the JAX
-package, with the same weights (JAX params -> numpy ->
-``params_to_state_dict``), images and ground truth.
+package, with the same weights (the port's seeded ones as a JAX parameter
+tree, ``test_torch_detector.port_params``), images and ground truth.
 
 ``jax.random`` and ``torch.Generator`` draw different numbers, so both sides'
 samplers get the same numpy-drawn priorities: ``_pos_priority`` /
@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_detector import FAST_COMPILE, _perturb, tiny_cfg
+from test_torch_detector import FAST_COMPILE, _perturb, port_params, tiny_cfg
 
 from __graft_entry__ import _build_flagship
 from arfe_tpu.core.bbox.coder import bbox2delta as j_bbox2delta
@@ -125,9 +125,7 @@ def stop_roi_gradient(jm):
 def run():
     rng = np.random.RandomState(0)
     jm = _build_flagship(tiny=True)
-    params = _perturb(jax.tree_util.tree_map(
-        np.array, jax.jit(jm.init, compiler_options=FAST_COMPILE)(
-            jax.random.PRNGKey(0))), rng)
+    params = _perturb(port_params(), rng)
     gt, gvalid, glabels = _ground_truth(rng)
     img = (rng.randn(B, H, W, 3) * 0.2).astype(np.float32)
     props, pvalid = _proposals(rng, gt, gvalid)
@@ -172,7 +170,14 @@ def run():
 
 
 def _rpn_assign(run):
-    """Both sides' RPN assignment over the (anchor, position) anchor table."""
+    """Both sides' RPN assignment over the (anchor, position) anchor table,
+    computed once for the module's tests."""
+    if 'rpn_assign' not in run:
+        run['rpn_assign'] = _rpn_assign_once(run)
+    return run['rpn_assign']
+
+
+def _rpn_assign_once(run):
     jm, tm, d = run['jm'], run['tm'], run['data']
     janchors, jflags = jm.rpn_head._flat_anchor_table(run['sizes'],
                                                       anchor_major=True)
@@ -219,6 +224,14 @@ def test_rpn_assigner_matches_jax(run):
 
 
 def _rcnn_assign(run):
+    """Both sides' RoI head assignment, computed once for the module's
+    tests."""
+    if 'rcnn_assign' not in run:
+        run['rcnn_assign'] = _rcnn_assign_once(run)
+    return run['rcnn_assign']
+
+
+def _rcnn_assign_once(run):
     jm, tm, d = run['jm'], run['tm'], run['data']
     jargs = [jnp.asarray(d[k]) for k in ('props', 'pvalid', 'gt', 'gvalid',
                                          'glabels')]
