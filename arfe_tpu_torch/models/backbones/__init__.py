@@ -1,3 +1,4 @@
 from .resnet import ResNet
+from .resnext import ResNeXt
 
-__all__ = ['ResNet']
+__all__ = ['ResNeXt', 'ResNet']

@@ -1,14 +1,20 @@
-"""ResNet backbone, pytorch style (counterpart of
-``arfe_tpu/models/backbones/resnet.py``).
+"""ResNet backbone (counterpart of ``arfe_tpu/models/backbones/resnet.py``).
 
 Parameter names follow torchvision / mmdet (``conv1``, ``bn1``,
-``layer{1..4}.{i}``, ``downsample.0/1``). BatchNorm is always in frozen
+``layer{1..4}.{i}``, ``downsample.0/1``). ``style='pytorch'`` puts a
+stage's stride 2 on the bottleneck's 3x3 conv, ``style='caffe'`` on its
+first 1x1 conv (``resnet.py:9-10,94-97``); a ``BasicBlock`` takes the style
+and ignores it, as the JAX package's does. BatchNorm is always in frozen
 (``norm_eval``) form: its statistics never change, its affine weight and bias
 train. ``frozen_stages = k`` stops the gradient of the stem and of stages
 1..k (``requires_grad`` off), as the JAX package's ``stop_gradient``
-(``resnet.py:316-330``). ``norm_cfg`` and ``zero_init_residual`` are accepted
-for the configs and unused. The TPU-only ``stem_space_to_depth`` key is
-accepted and ignored: the plain 7x7 stem computes the same numbers.
+(``resnet.py:316-330``). ``norm_cfg`` is accepted and not read, as in the
+JAX package (``resnet.py:199-201``; ``arfe_tpu/layers.py:233`` drops
+``requires_grad``): the caffe configs' ``norm_cfg=dict(requires_grad=False)``
+leaves the BatchNorm affine parameters training there, and so here.
+``zero_init_residual`` is accepted and unused. The TPU-only
+``stem_space_to_depth`` key is accepted and ignored: the plain 7x7 stem
+computes the same numbers.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, dilation=1,
-                 downsample=False):
+                 downsample=False, style='pytorch'):
         super().__init__()
         self.conv1 = Conv2d(inplanes, planes, 3, stride=stride,
                             padding=dilation, dilation=dilation, bias=False,
@@ -45,20 +51,25 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
+    """1x1, 3x3 (``groups`` groups), 1x1 over ``width`` middle channels
+    (``planes`` unless given: ResNeXt's are wider)."""
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, dilation=1,
-                 downsample=False):
+                 downsample=False, style='pytorch', groups=1, width=None):
         super().__init__()
-        # pytorch style: the stride sits on the 3x3 conv
-        self.conv1 = Conv2d(inplanes, planes, 1, bias=False,
+        width = planes if width is None else width
+        # pytorch style: the stride on the 3x3 conv; caffe: on the first 1x1
+        stride1, stride2 = (1, stride) if style == 'pytorch' else (stride, 1)
+        self.conv1 = Conv2d(inplanes, width, 1, stride=stride1, bias=False,
                             weight_init='kaiming_fan_out')
-        self.bn1 = BatchNorm(planes)
-        self.conv2 = Conv2d(planes, planes, 3, stride=stride,
-                            padding=dilation, dilation=dilation, bias=False,
+        self.bn1 = BatchNorm(width)
+        self.conv2 = Conv2d(width, width, 3, stride=stride2,
+                            padding=dilation, dilation=dilation,
+                            groups=groups, bias=False,
                             weight_init='kaiming_fan_out')
-        self.bn2 = BatchNorm(planes)
-        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False,
+        self.bn2 = BatchNorm(width)
+        self.conv3 = Conv2d(width, planes * 4, 1, bias=False,
                             weight_init='kaiming_fan_out')
         self.bn3 = BatchNorm(planes * 4)
         self.downsample = nn.Sequential(
@@ -92,10 +103,11 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in self.arch_settings:
             raise KeyError(f'invalid depth {depth} for resnet')
-        if style != 'pytorch':
-            raise NotImplementedError(f'ResNet style {style!r} is not ported')
+        if style not in ('pytorch', 'caffe'):
+            raise ValueError(f'ResNet style {style!r}: pytorch or caffe')
         if not norm_eval:
             raise NotImplementedError('ResNet: only norm_eval=True is ported')
+        self.style = style
         block_cls, stage_blocks = self.arch_settings[depth]
         self.out_indices = tuple(out_indices)
         self.conv1 = Conv2d(in_channels, base_channels, 7, stride=2, padding=3,
@@ -110,9 +122,9 @@ class ResNet(nn.Module):
                 stride = strides[i] if j == 0 else 1
                 need_ds = j == 0 and (stride != 1 or inplanes
                                       != planes * block_cls.expansion)
-                blocks.append(block_cls(inplanes, planes, stride=stride,
-                                        dilation=dilations[i],
-                                        downsample=need_ds))
+                blocks.append(self.make_block(
+                    block_cls, inplanes, planes, stride=stride,
+                    dilation=dilations[i], downsample=need_ds, style=style))
                 inplanes = planes * block_cls.expansion
             setattr(self, f'layer{i + 1}', nn.Sequential(*blocks))
         self.frozen_stages = frozen_stages
@@ -121,6 +133,10 @@ class ResNet(nn.Module):
                     getattr(self, f'layer{i}')
                     for i in range(1, frozen_stages + 1)]:
                 m.requires_grad_(False)
+
+    def make_block(self, block_cls, inplanes, planes, **kwargs):
+        """One residual block of a stage (ResNeXt's are grouped)."""
+        return block_cls(inplanes, planes, **kwargs)
 
     def forward(self, x):
         x = torch.relu(self.bn1(self.conv1(x)))

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import torch
 
-from ...core.bbox.coder import delta2bbox
 from ...layers import Conv2d
 from ...ops.nms import nms_batched
 from ...registry import HEADS
@@ -75,6 +74,24 @@ class RPNHead(AnchorHead):
         return dict(loss_rpn_cls=losses['loss_cls'],
                     loss_rpn_bbox=losses['loss_bbox'])
 
+    def _level_candidates(self, x, anchors):
+        """A level's (B, A * H * W) logits, (B, 4, A * H * W) regressions
+        and (A * H * W, 4) anchors in (anchor, position) order."""
+        b, _, h, w = x.shape
+        num_a, hw = self.num_anchors, h * w
+        cls_t, reg_t = self._heads(x)
+        if self.use_sigmoid_cls:
+            logits = cls_t.reshape(b, num_a * hw)
+        else:
+            # softmax fg prob of a (fg, bg) pair == sigmoid(l0 - l1)
+            lt = cls_t.reshape(b, num_a, 2, hw)
+            logits = (lt[:, :, 0] - lt[:, :, 1]).reshape(b, num_a * hw)
+        preds = reg_t.transpose(1, 2).reshape(b, 4, num_a * hw)
+        anchors = torch.from_numpy(
+            anchors.reshape(hw, num_a, 4).transpose(1, 0, 2)
+            .reshape(num_a * hw, 4)).to(x.device)
+        return logits, preds, anchors
+
     def get_proposals(self, feats, img_shapes, cfg=None, shared=None):
         """Proposals of each image.
 
@@ -93,23 +110,10 @@ class RPNHead(AnchorHead):
         mlvl_anchors = self.anchor_generator.grid_anchors(
             [tuple(x.shape[2:]) for x in shared])
         nms_pre = cfg.get('nms_pre', -1)
-        num_a = self.num_anchors
         scores_l, preds_l, anchors_l = [], [], []
         for x, anchors in zip(shared, mlvl_anchors):
-            b, _, h, w = x.shape
-            hw = h * w
-            cls_t, reg_t = self._heads(x)
-            if self.use_sigmoid_cls:
-                logits = cls_t.reshape(b, num_a * hw)
-            else:
-                # softmax fg prob of a (fg, bg) pair == sigmoid(l0 - l1)
-                lt = cls_t.reshape(b, num_a, 2, hw)
-                logits = (lt[:, :, 0] - lt[:, :, 1]).reshape(b, num_a * hw)
-            preds = reg_t.transpose(1, 2).reshape(b, 4, num_a * hw)
-            anchors = torch.from_numpy(
-                anchors.reshape(hw, num_a, 4).transpose(1, 0, 2)
-                .reshape(num_a * hw, 4)).to(x.device)
-            hwa = num_a * hw
+            logits, preds, anchors = self._level_candidates(x, anchors)
+            b, hwa = logits.shape
             if 0 < nms_pre < hwa:
                 lg, idx = stable_topk(logits, nms_pre)
                 prd = torch.gather(preds, 2, idx[:, None, :].expand(
@@ -144,9 +148,8 @@ class RPNHead(AnchorHead):
         ar = torch.arange(k_cap, device=scores.device)
         lvl_valid = torch.stack([ar < c for c in counts])[None].expand(
             b, num_lvls, k_cap)
-        proposals = delta2bbox(anchors, preds, self.bbox_coder.means,
-                               self.bbox_coder.stds,
-                               max_shape=img_shapes[:, None, :])
+        proposals = self.bbox_coder.decode(anchors, preds,
+                                           max_shape=img_shapes[:, None, :])
         min_size = cfg.get('min_bbox_size', 0)
         w = proposals[..., 2] - proposals[..., 0]
         h = proposals[..., 3] - proposals[..., 1]

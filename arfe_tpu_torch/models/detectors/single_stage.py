@@ -28,8 +28,8 @@ class SingleStageDetector(nn.Module):
                                          test_cfg=test_cfg))
 
     # what the tools ask of a detector, whatever its family
-    with_mask = with_multi_cls = False
-    num_extractions = 0
+    with_mask = with_multi_cls = serves_masks = False
+    num_extractions = num_step_extractions = 0
     roi_samplers = ()
 
     @property

@@ -2,7 +2,9 @@
 ``arfe_tpu/models/detectors/two_stage.py:11-121,155-161,170-172``): Faster
 R-CNN, Mask R-CNN, whose RoI head has a mask branch, and Cascade R-CNN,
 whose RoI head refines in stages (``train_cfg['rcnn']`` a list, one entry
-per stage)."""
+per stage). Without a neck the backbone's outputs are the features: the C4
+detectors' one stride-16 level, which the RPN and the RoI head read as they
+read an FPN's levels."""
 from __future__ import annotations
 
 import torch
@@ -51,8 +53,18 @@ class TwoStageDetector(nn.Module):
 
     @property
     def num_extractions(self):
-        """RoIAlign calls in one request, and in one step."""
+        """RoIAlign calls in one request."""
         return self.roi_head.num_extractions
+
+    @property
+    def num_step_extractions(self):
+        """RoIAlign calls in one step that take a gradient."""
+        return self.roi_head.num_step_extractions
+
+    @property
+    def serves_masks(self):
+        """Whether a request gives mask logits."""
+        return self.roi_head.serves_masks
 
     @property
     def roi_samplers(self):

@@ -14,8 +14,16 @@ scaled by the stage's weight (``acc`` is not). Inference: every stage on
 the boxes the previous one refined; the stages' raw class logits averaged
 (mmdet 2.0's rule), decoded with the last stage's regression.
 
-Parameter names: ``bbox_head.{i}.…`` per stage. Cascade Mask R-CNN (a mask
-branch per stage) is not ported here.
+Cascade Mask R-CNN (``:37-47,60-67,145-176``): each stage also has a mask
+head, ``mask_head.{i}``, trained on the leading ``num * pos_fraction`` slots
+of that stage's samples (every positive: the sampler packs them first),
+extracted with the stage's mask extractor (its bbox one where the config
+gives none) against targets from the batch's gt crops
+(``core.mask.mask_target_from_crops``); its ``s{i}.loss_mask`` is scaled by
+the stage's weight. Serving gives boxes only, as the JAX package's
+``simple_test`` (``:179-226``).
+
+Parameter names: ``bbox_head.{i}.…`` and ``mask_head.{i}.…`` per stage.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from torch import nn
 
 from ...registry import BBOX_ASSIGNERS, BBOX_SAMPLERS, HEADS, build_from_cfg
 from ..builder import build_head, build_roi_extractor
-from .standard_roi_head import (assign_candidates, boxes_to_rois,
+from .standard_roi_head import (assign_candidates, boxes_to_rois, mask_loss,
                                 sample_candidates)
 
 
@@ -39,10 +47,6 @@ class CascadeRoIHead(nn.Module):
                  bbox_head=None, mask_roi_extractor=None, mask_head=None,
                  shared_head=None, train_cfg=None, test_cfg=None):
         super().__init__()
-        if mask_head is not None:
-            raise NotImplementedError(
-                'CascadeRoIHead: the per-stage mask branch (Cascade Mask '
-                'R-CNN) is not ported yet (ROADMAP.md §1 item 3)')
         if shared_head is not None:
             raise NotImplementedError('CascadeRoIHead: shared_head is not '
                                       'ported')
@@ -53,7 +57,14 @@ class CascadeRoIHead(nn.Module):
             for c in _per_stage(bbox_roi_extractor, num_stages))
         self.bbox_head = nn.ModuleList(
             build_head(c) for c in _per_stage(bbox_head, num_stages))
-        self.with_mask = False
+        self.with_mask = mask_head is not None
+        if self.with_mask:
+            self.mask_roi_extractor = self.bbox_roi_extractor \
+                if mask_roi_extractor is None else nn.ModuleList(
+                    build_roi_extractor(c)
+                    for c in _per_stage(mask_roi_extractor, num_stages))
+            self.mask_head = nn.ModuleList(
+                build_head(c) for c in _per_stage(mask_head, num_stages))
         self.with_multi_cls = False
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
@@ -70,8 +81,19 @@ class CascadeRoIHead(nn.Module):
 
     @property
     def num_extractions(self):
-        """RoIAlign calls in one request, and in one step: one a stage."""
+        """RoIAlign calls in one request: one a stage."""
         return self.num_stages
+
+    @property
+    def num_step_extractions(self):
+        """RoIAlign calls in one step, each with its gradient: one a stage,
+        and one more a stage for the mask branch."""
+        return self.num_stages * (1 + self.with_mask)
+
+    @property
+    def serves_masks(self):
+        """A request gives boxes only (the JAX package's ``simple_test``)."""
+        return False
 
     @property
     def stage_samplers(self):
@@ -100,11 +122,16 @@ class CascadeRoIHead(nn.Module):
             proposals: (B, P, 5); prop_valid (B, P).
             gt_bboxes: (B, G, 4) padded; gt_valid (B, G); gt_labels (B, G).
             gen: the ``torch.Generator`` of the samplers' priorities.
-            gt_mask_crops: accepted for the trainer's batch; no mask branch.
+            gt_mask_crops: (B, G, cs, cs) each gt's mask cut to its box;
+                required with a mask head.
             img_shapes: (B, 2) (h, w) the refined boxes are clamped to.
         Returns:
-            dict of ``s{i}.loss_cls``, ``s{i}.acc`` and ``s{i}.loss_bbox``.
+            dict of ``s{i}.loss_cls``, ``s{i}.acc`` and ``s{i}.loss_bbox``,
+            and ``s{i}.loss_mask`` with a mask head.
         """
+        if self.with_mask and gt_mask_crops is None:
+            raise ValueError('mask training needs gt_mask_crops in the '
+                             'batch')
         losses = {}
         boxes, valid = proposals[..., :4], prop_valid
         for stage in range(self.num_stages):
@@ -116,8 +143,8 @@ class CascadeRoIHead(nn.Module):
                                         max_overlaps, gt_bboxes, gt_labels)
             b, s = sampled['boxes'].shape[:2]
             # every slot is extracted, invalid ones too: their weight is 0
-            cls_score, bbox_pred = self._bbox_forward(
-                stage, feats, boxes_to_rois(sampled['boxes']))
+            rois = boxes_to_rois(sampled['boxes'])
+            cls_score, bbox_pred = self._bbox_forward(stage, feats, rois)
             head = self.bbox_head[stage]
             labels, label_weights, bbox_targets, bbox_weights = \
                 head.get_targets(sampled['boxes'], sampled['gt_boxes'],
@@ -129,6 +156,12 @@ class CascadeRoIHead(nn.Module):
                 label_weights.reshape(-1), bbox_targets.reshape(-1, 4),
                 bbox_weights.reshape(-1, 4))
             w = self.stage_loss_weights[stage]
+            if self.with_mask:
+                extractor = self.mask_roi_extractor[stage]
+                stage_losses.update(mask_loss(
+                    self.mask_head[stage], sampler, rois, sampled,
+                    gt_mask_crops, lambda r, e=extractor: e(
+                        feats[:e.num_inputs], r)))
             for name, value in stage_losses.items():
                 losses[f's{stage}.{name}'] = value * w if 'loss' in name \
                     else value

@@ -23,6 +23,11 @@ inference every detection slot, padding included, so each request makes
 one mask extraction of fixed size. Mask test-time augmentation is not
 ported here.
 
+With a ``shared_head`` (the C4 detectors' ``ResLayer``, counterpart of
+``standard_roi_head.py:31-33,243-244,288-289,437-438``) every extraction's
+features go through it before the bbox or mask head: in training, serving
+and OHEM's hard-mining pass.
+
 A sampler that ``needs_hard_scores`` (OHEM) ranks the candidates by their
 classification loss: every candidate of the batch is assigned and goes
 through the bbox branch once more without gradient (one more RoIAlign
@@ -87,12 +92,36 @@ def sample_candidates(sampler, gen, boxes, assigned, max_overlaps, gt_bboxes,
                 is_pos=sample['is_pos'], valid=sample['valid'])
 
 
+def mask_loss(mask_head, sampler, rois, sampled, gt_mask_crops, extract):
+    """``mask_head``'s loss on the positive slots of (B * S, 5) ``rois``
+    sampled by ``sampler``: it packs each image's positives into its
+    leading slots, so only the first ``num * pos_fraction`` are extracted
+    (``extract``: RoIs -> (R, oh, ow, C) features), against targets
+    resampled from the batch's gt crops."""
+    b, s = sampled['boxes'].shape[:2]
+    cap = min(s, int(sampler.num * sampler.pos_fraction))
+    mask_pred = mask_head(extract(rois.reshape(b, s, 5)[:, :cap]
+                                  .reshape(b * cap, 5)))
+    crops = _rows(gt_mask_crops, sampled['gt_inds'][:, :cap])
+    targets = mask_target_from_crops(
+        crops.reshape(b * cap, *crops.shape[2:]),
+        sampled['gt_boxes'][:, :cap].reshape(-1, 4),
+        sampled['boxes'][:, :cap].reshape(-1, 4),
+        mask_size=mask_pred.shape[1])
+    pos = sampled['is_pos'][:, :cap] & sampled['valid'][:, :cap]
+    return mask_head.loss(mask_pred, targets,
+                          sampled['labels'][:, :cap].reshape(-1),
+                          pos.reshape(-1))
+
+
 @HEADS.register_module()
 class StandardRoIHead(nn.Module):
     def __init__(self, bbox_roi_extractor, bbox_head, mask_roi_extractor=None,
-                 mask_head=None, multi_rois=None, adaptive_scale_fac=1.0,
-                 train_cfg=None, test_cfg=None):
+                 mask_head=None, shared_head=None, multi_rois=None,
+                 adaptive_scale_fac=1.0, train_cfg=None, test_cfg=None):
         super().__init__()
+        self.shared_head = None if shared_head is None \
+            else build_head(shared_head)
         self.bbox_roi_extractor = build_roi_extractor(bbox_roi_extractor)
         self.bbox_head = build_head(bbox_head)
         self.with_mask = mask_head is not None
@@ -123,9 +152,19 @@ class StandardRoIHead(nn.Module):
 
     @property
     def num_extractions(self):
-        """RoIAlign calls in one request, and in one step: the boxes', and
-        the mask branch's."""
+        """RoIAlign calls in one request: the boxes', and the mask
+        branch's."""
         return 1 + self.with_mask
+
+    @property
+    def num_step_extractions(self):
+        """RoIAlign calls in one step that take a gradient: as many."""
+        return self.num_extractions
+
+    @property
+    def serves_masks(self):
+        """Whether a request gives mask logits."""
+        return self.with_mask
 
     @property
     def stage_samplers(self):
@@ -134,6 +173,18 @@ class StandardRoIHead(nn.Module):
     def classifiers(self):
         """The layers that give the class logits."""
         return [self.bbox_head.fc_cls]
+
+    def _through_shared_head(self, roi_feats):
+        """RoI features (R, oh, ow, C) through the shared head where there
+        is one."""
+        return roi_feats if self.shared_head is None \
+            else self.shared_head(roi_feats)
+
+    def _extract(self, extractor, feats, rois):
+        """RoI features (R, oh, ow, C) of ``extractor``, through the shared
+        head where there is one."""
+        return self._through_shared_head(
+            extractor(feats[:extractor.num_inputs], rois))
 
     def _bbox_forward(self, feats, rois, num_imgs=1):
         """The head's outputs for (R, 5) RoIs of ``num_imgs`` images:
@@ -148,6 +199,7 @@ class StandardRoIHead(nn.Module):
             bbox_feats = torch.cat(all_feats.chunk(3), dim=-1)
         else:
             bbox_feats = extractor(lvl_feats, rois)
+        bbox_feats = self._through_shared_head(bbox_feats)
         if self.with_multi_cls:
             return self.bbox_head(bbox_feats, num_imgs=num_imgs)
         return self.bbox_head(bbox_feats)
@@ -231,28 +283,13 @@ class StandardRoIHead(nn.Module):
 
     def _mask_forward_train(self, feats, rois, sampled, gt_mask_crops):
         """The mask loss of the positive slots (ref:
-        standard_roi_head.py:189-223). The sampler packs each image's
-        positives into its leading slots, so the first ``num *
-        pos_fraction`` hold them all: only those are extracted."""
+        standard_roi_head.py:189-223, :func:`mask_loss`)."""
         if gt_mask_crops is None:
             raise ValueError('mask training needs gt_mask_crops in the '
                              'batch')
-        b, s = sampled['boxes'].shape[:2]
-        cap = min(s, int(self.sampler.num * self.sampler.pos_fraction))
-        rois = rois.reshape(b, s, 5)[:, :cap].reshape(b * cap, 5)
-        extractor = self.mask_roi_extractor
-        mask_pred = self.mask_head(extractor(feats[:extractor.num_inputs],
-                                             rois))
-        m = mask_pred.shape[1]
-        crops = _rows(gt_mask_crops, sampled['gt_inds'][:, :cap])
-        targets = mask_target_from_crops(
-            crops.reshape(b * cap, *crops.shape[2:]),
-            sampled['gt_boxes'][:, :cap].reshape(-1, 4),
-            sampled['boxes'][:, :cap].reshape(-1, 4), mask_size=m)
-        pos = sampled['is_pos'][:, :cap] & sampled['valid'][:, :cap]
-        return self.mask_head.loss(mask_pred, targets,
-                                   sampled['labels'][:, :cap].reshape(-1),
-                                   pos.reshape(-1))
+        return mask_loss(
+            self.mask_head, self.sampler, rois, sampled, gt_mask_crops,
+            lambda r: self._extract(self.mask_roi_extractor, feats, r))
 
     # ------------------------------------------------------------------
     # inference
@@ -298,9 +335,8 @@ class StandardRoIHead(nn.Module):
         boxes = dets[..., :4]
         if rescale:
             boxes = boxes * scale_factors[:, None, :4]
-        extractor = self.mask_roi_extractor
-        mask_pred = self.mask_head(extractor(feats[:extractor.num_inputs],
-                                             boxes_to_rois(boxes)))
+        mask_pred = self.mask_head(self._extract(self.mask_roi_extractor,
+                                                 feats, boxes_to_rois(boxes)))
         mh, mw = mask_pred.shape[1:3]
         mask_pred = mask_pred.reshape(b, n, mh, mw, -1)
         index = labels.long()[:, :, None, None, None].expand(b, n, mh, mw, 1)

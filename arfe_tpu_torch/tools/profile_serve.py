@@ -12,7 +12,11 @@ py``, whose RoI head stage holds its three stages, RetinaNet
 ``configs/libra_rcnn/libra_faster_rcnn_r{50,101}_fpn_1x_coco.py``, Libra
 RetinaNet ``configs/libra_rcnn/libra_retinanet_r50_fpn_1x_coco.py``, Faster
 R-CNN with OHEM or BFP ``configs/faster_rcnn/faster_rcnn_r50_fpn_{ohem,bfp}_
-1x_coco.py``) at 800x1344 in bf16
+1x_coco.py``, the caffe, ResNeXt, C4, Cascade Mask and mmdet 1.x configs
+that ``train.bench`` names: ``CAFFE_CFG``, ``LIBRA_X101_CFG``,
+``C4_MASK_CFG``, ``C4_CFG``, ``CASCADE_MASK_CFG``, ``MASK_V1_CFG``; a C4
+detector's "backbone + necks" is its trunk to stage 3, its RoI head holds
+the shared ``layer4``) at 800x1344 in bf16
 with seeded random weights (as ``chip_smoke.py`` does) and prints, over five
 requests after two warm-up requests:
 

@@ -10,8 +10,10 @@ Mask R-CNN ``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``, Cascade R-CNN
 ``configs/arfe/retinanet_r50_arfpn_1x_coco.py``, Libra R-CNN + ARFE
 ``configs/libra_rcnn/libra_faster_rcnn_r{50,101}_fpn_1x_coco.py``, Libra
 RetinaNet ``configs/libra_rcnn/libra_retinanet_r50_fpn_1x_coco.py``, Faster
-R-CNN + OHEM ``configs/faster_rcnn/faster_rcnn_r50_fpn_ohem_1x_coco.py``)
-at 800x1344 in bf16 (or f32: ``--dtype f32``) with seeded random weights,
+R-CNN + OHEM ``configs/faster_rcnn/faster_rcnn_r50_fpn_ohem_1x_coco.py``,
+and the caffe, ResNeXt, C4 and Cascade Mask configs that ``train.bench``
+names: ``CAFFE_CFG``, ``LIBRA_X101_CFG``, ``C4_MASK_CFG``,
+``CASCADE_MASK_CFG``) at 800x1344 in bf16 (or f32: ``--dtype f32``) with seeded random weights,
 the bench's synthetic batch (8 gt boxes of 30-80 px per image, and random
 28 x 28 gt mask crops for a mask head, ``bench.py:170-188``) and its SGD
 schedule (``bench.py:163-168``), both

@@ -1,9 +1,14 @@
-"""How well the tiny Cascade R-CNN's f32 training step is conditioned.
+"""How well an f32 training step is conditioned: the tiny Cascade R-CNN's,
+or a full-width config's.
 
     python -m arfe_tpu_torch.tools.step_conditioning [--device cpu]
+        [--config PATH]
 
 Takes one training step of the tiny Cascade R-CNN (R18, 64 channels, the
-form of ``tests/test_torch_gpu.py``) three times on the same weights, batch
+form of ``tests/test_torch_gpu.py``), or with ``--config`` of that config's
+detector at full width on the step ``chip_smoke.py`` holds against the CPU
+(the trainer's seeded starting weights, ``bench.build_trainer``, and a
+2 x 320 x 480 batch of seed 6), three times on the same weights, batch
 and sampling priorities: on the card in f32, on the CPU in f32 (the plain
 paths) and on the CPU in f64 (the detector cast to float64, the AR-FPN
 attention computed in float64; RoIAlign's plain version and the losses
@@ -15,12 +20,16 @@ CPU's f32 step is what strays; where both f32 steps stray alike, the step
 itself is ill-conditioned; where only the card strays, the card is at
 fault.
 
-The forms: the weights that serve the card test's requests (AR-FPN's
+The tiny forms: the weights that serve the card test's requests (AR-FPN's
 ``conv_out`` drawn, every stage's ``fc_cls`` weights scaled until the
 test image gets 10 to 99 detections) with the batches of seeds 3 and 4,
 and the seeded weights of the card test's training step with the batch of
-seed 3. Without a card (``--device cpu``) only the CPU's columns print.
-Prints the card's name and power limit, a line per form and one JSON line.
+seed 3. Then each pair is read again with both steps fed the f64 step's
+proposals (without their gradient): a difference that goes away there came
+from the RPN's choice of proposals (a top-k or NMS flip), one that stays
+from the step after it. Without a card (``--device cpu``) only the CPU's
+columns print. Prints the card's name and power limit, a line per form and
+one JSON line.
 """
 from __future__ import annotations
 
@@ -32,12 +41,17 @@ import torch.nn.functional as F
 
 from ..apis import init_detector
 from ..config import Config
-from ..models.roi_heads import cascade_roi_head
+from ..models.roi_heads import cascade_roi_head, standard_roi_head
 from ..ops import non_local
 from ..train import bench
 
-#: an AR-FPN attention-map conv, whose gradient the read names
+#: an AR-FPN attention-map conv, whose gradient the read names (where the
+#: detector has one)
 TENSOR = 'neck.1.reduce_convs.0.conv.weight'
+#: the full-width step of ``chip_smoke.py``'s card-against-CPU check: the
+#: trainer's starting weights and a (2, 320, 480) batch of this seed, the
+#: samplers' draws fixed with ``bench.fix_priorities``' default seed
+FULL_HW, FULL_BATCH_SEED, FULL_DRAW_SEED = (320, 480), 6, 5
 
 
 def tiny_cascade_config():
@@ -96,10 +110,11 @@ def _step(model, batch, seed, proposals=None):
 
     def keep_proposals(*args, **kwargs):
         out = get_proposals(*args, **kwargs)
-        seen['proposals'] = [t.detach().cpu() for t in out]
+        seen['proposals'] = [t.detach().cpu() for t in out[:2]]
         if proposals is None:
             return out
-        return (proposals[0].to(out[0]), proposals[1].to(out[1].device))
+        return (proposals[0].to(out[0]), proposals[1].to(out[1].device)) \
+            + tuple(out[2:])
     model.rpn_head.get_proposals = keep_proposals
 
     def keep(name):
@@ -119,10 +134,12 @@ def _step(model, batch, seed, proposals=None):
         seen['stages'].append([t.detach().double().cpu() for t in out])
         return out
     cascade_roi_head.assign_candidates = keep_assign
+    standard_roi_head.assign_candidates = keep_assign
     try:
         return bench.loss_and_grads(model, batch, seed), seen
     finally:
         cascade_roi_head.assign_candidates = assign
+        standard_roi_head.assign_candidates = assign
         del model.rpn_head.get_proposals
         for h in handles:
             h.remove()
@@ -202,13 +219,24 @@ def _errors(ref, other):
     :func:`_candidate_flips`."""
     (_, g_ref), (_, g_other) = ref[0], other[0]
     losses, worst = bench.differences(ref[0], other[0])
-    return (worst, (g_ref[TENSOR] - g_other[TENSOR]).abs().max().item()
-            / g_ref[TENSOR].abs().max().item(), _gate_flips(ref, other),
-            max(losses.values()), _candidate_flips(ref, other))
+    tensor = float('nan') if TENSOR not in g_ref else (
+        (g_ref[TENSOR] - g_other[TENSOR]).abs().max().item()
+        / g_ref[TENSOR].abs().max().item())
+    return (worst, tensor, _gate_flips(ref, other), max(losses.values()),
+            _candidate_flips(ref, other))
+
+
+def full_width_form(path):
+    """The form of a full-width config: (name, CPU model in f32 with
+    train_cfg and the trainer's starting weights, batch seed)."""
+    model = bench.build_trainer(path, device='cpu')[0]
+    return [(f'{path}: the trainer\'s starting weights, batch seed '
+             f'{FULL_BATCH_SEED}', model, FULL_BATCH_SEED)]
 
 
 def forms():
-    """(name, CPU model in f32 with train_cfg, batch seed) of each form."""
+    """(name, CPU model in f32 with train_cfg, batch seed) of each tiny
+    form."""
     cfg = tiny_cascade_config()
     serving = init_detector(cfg, device='cpu', train=True)
     img = torch.randn((1, 192, 256, 3),
@@ -227,6 +255,9 @@ def forms():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--device', default='cuda')
+    parser.add_argument('--config', default=None,
+                        help='a full-width config instead of the tiny '
+                        'Cascade R-CNN')
     args = parser.parse_args()
     on_card = args.device != 'cpu'
     if on_card:
@@ -234,27 +265,33 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(card())
-    cfg = tiny_cascade_config()
+    if args.config is None:
+        cfg, (h, w), draws = tiny_cascade_config(), (192, 256), 1
+        shape, runs = (192., 250.), forms()
+    else:
+        cfg, (h, w), draws = args.config, FULL_HW, FULL_DRAW_SEED
+        shape, runs = (float(h), float(w)), full_width_form(args.config)
     result = []
-    for name, cpu, seed in forms():
-        batch = bench.synthetic_batch(2, 192, 256, (192., 250.),
-                                      torch.float32, seed=seed, device='cpu')
-        f64 = _f64_step(cfg, cpu, batch, 1)
-        f32 = _step(cpu, batch, 1)
+    for name, cpu, seed in runs:
+        batch = bench.synthetic_batch(2, h, w, shape, torch.float32,
+                                      seed=seed, device='cpu',
+                                      masks=cpu.with_mask)
+        f64 = _f64_step(cfg, cpu, batch, draws)
+        f32 = _step(cpu, batch, draws)
         row = {'form': name, 'cpu_f32_vs_f64': _errors(f64, f32)}
         # the f64 step's proposals, without their gradient, fed to both
         props = f64[1]['proposals']
-        f64_fixed = _f64_step(cfg, cpu, batch, 1, props)
+        f64_fixed = _f64_step(cfg, cpu, batch, draws, props)
         row['cpu_f32_vs_f64_same_proposals'] = _errors(
-            f64_fixed, _step(cpu, batch, 1, props))
+            f64_fixed, _step(cpu, batch, draws, props))
         if on_card:
             gpu = init_detector(cfg, device=args.device, train=True)
             gpu.load_state_dict(cpu.state_dict())
-            card_f32 = _step(gpu, batch, 1)
+            card_f32 = _step(gpu, batch, draws)
             row['card_f32_vs_f64'] = _errors(f64, card_f32)
             row['card_vs_cpu_f32'] = _errors(f32, card_f32)
             row['card_f32_vs_f64_same_proposals'] = _errors(
-                f64_fixed, _step(gpu, batch, 1, props))
+                f64_fixed, _step(gpu, batch, draws, props))
             del gpu
         print(f'{name}: ' + '; '.join(
             f'{k} largest {v[0][0]:.3e} ({v[0][1]}), {TENSOR} {v[1]:.3e}, '

@@ -11,8 +11,10 @@ here:
   SGD schedule (``bench.py:163-168``);
 - :func:`compare_with_cpu`: the losses and gradients of one f32 step of a
   model on the card against the same weights on the CPU (plain path), with
-  the same sampling draws (:func:`fix_priorities`), and for OHEM the CPU's
-  hard scores.
+  the same sampling draws (:func:`fix_priorities`), the CPU's choice of
+  proposals, and for OHEM the CPU's hard scores; and the card's own choice
+  of proposals against the plain path's on the card's candidates
+  (:func:`selection_faults`).
 """
 from __future__ import annotations
 
@@ -54,6 +56,25 @@ OHEM_CFG = os.path.join(_CONFIGS, 'faster_rcnn',
                         'faster_rcnn_r50_fpn_ohem_1x_coco.py')
 BFP_CFG = os.path.join(_CONFIGS, 'faster_rcnn',
                        'faster_rcnn_r50_fpn_bfp_1x_coco.py')
+#: Faster R-CNN R50 caffe + FPN (BGR input, ``Normalize(to_rgb=False)``)
+CAFFE_CFG = os.path.join(_CONFIGS, 'faster_rcnn',
+                         'faster_rcnn_r50_caffe_fpn_1x_coco.py')
+#: Libra R-CNN + ARFE on ResNeXt-101 64x4d
+LIBRA_X101_CFG = os.path.join(_CONFIGS, 'libra_rcnn',
+                              'libra_faster_rcnn_x101_64x4d_fpn_1x_coco.py')
+#: the C4 layout: caffe ResNet-50 to stage 3, one stride-16 level, RoIAlign
+#: at 14 x 14 over 1024 channels, the shared ResLayer head (layer4)
+C4_MASK_CFG = os.path.join(_CONFIGS, 'mask_rcnn',
+                           'mask_rcnn_r50_caffe_c4_1x_coco.py')
+C4_CFG = os.path.join(_CONFIGS, 'faster_rcnn',
+                      'faster_rcnn_r50_caffe_c4_1x_coco.py')
+#: Cascade Mask R-CNN R50 + FPN (a mask head a stage; serves boxes)
+CASCADE_MASK_CFG = os.path.join(_CONFIGS, 'cascade_rcnn',
+                                'cascade_mask_rcnn_r50_fpn_1x_coco.py')
+#: Mask R-CNN R50 caffe + FPN as mmdet 1.x trained it (the legacy +1 box
+#: coder, RoIAlign with ``sample_num=2``)
+MASK_V1_CFG = os.path.join(_CONFIGS, 'mask_rcnn',
+                           'mask_rcnn_r50_caffe_fpn_poly_1x_coco_v1.py')
 H, W = 800, 1344             # the bench's padded image (bench.py:28)
 IMG_SHAPE = (800.0, 1333.0)  # its content shape (bench.py:90)
 BATCH_KEYS = ('img', 'img_shape', 'gt_bboxes', 'gt_valid', 'gt_labels')
@@ -109,11 +130,11 @@ def refine_block(model):
 
 def step_launches(model):
     """The kernel launches (A, B, C) of one training step: A once where the
-    neck has a NonLocal refine; B and C once per RoI extraction, and B once
-    more for OHEM's hard-mining forward over every candidate, which takes
-    no gradient."""
+    neck has a NonLocal refine; B and C once per RoI extraction (a cascade
+    mask head's included), and B once more for OHEM's hard-mining forward
+    over every candidate, which takes no gradient."""
     mining = any(s.needs_hard_scores for s in model.roi_samplers)
-    n = model.num_extractions
+    n = model.num_step_extractions
     return int(refine_block(model) is not None), n + mining, n
 
 
@@ -194,18 +215,40 @@ def fix_priorities(model, num_gts, h, w, seed=5):
         sampler._uniform = fixed
 
 
-def loss_and_grads(model, batch, seed=5, hard_scores=None, seen=None):
+def loss_and_grads(model, batch, seed=5, hard_scores=None, seen=None,
+                   chosen=None, rpn_seen=None):
     """Losses and parameter gradients (on the CPU) of one ``forward_train``
     + backward on the model's device, with the fixed sampling draws. For a
     model whose RoI sampler takes OHEM's hard scores, the scores it
     computes, the candidates' assignment and their boxes are appended to
     ``seen`` (on the CPU), and ``hard_scores``, where given, rank the
-    candidates in their place."""
+    candidates in their place. The RPN's inputs and its own choice of
+    proposals, ``(shared features, image shapes, cfg, proposals,
+    validity)``, are appended to ``rpn_seen``, and ``chosen`` (B, P), where
+    given, replaces that choice: the proposals are then those candidates
+    (:func:`chosen_candidates`) decoded from this model's own regressions,
+    with their gradient (:func:`proposals_at`)."""
     dev = next(model.parameters()).device
     _, h, w, _ = batch['img'].shape
     fix_priorities(model, batch['gt_bboxes'].shape[1], h, w, seed)
     model.zero_grad(set_to_none=True)
     crops = batch.get('gt_mask_crops')
+    rpn = getattr(model, 'rpn_head', None)
+    if rpn is not None:
+        # another caller's wrapper (tools/step_conditioning.py) stays inside
+        own = vars(rpn).get('get_proposals')
+        get_proposals = rpn.get_proposals
+
+        def choose(feats, img_shapes, cfg=None, shared=None):
+            dets, valid = get_proposals(feats, img_shapes, cfg, shared)
+            if rpn_seen is not None:
+                rpn_seen.append((shared, img_shapes, cfg, dets.detach(),
+                                 valid))
+            if chosen is None:
+                return dets, valid
+            return proposals_at(rpn, rpn_candidates(rpn, shared),
+                                chosen.to(dev), img_shapes)
+        rpn.get_proposals = choose
     mining = any(s.needs_hard_scores for s in model.roi_samplers)
     if mining:
         head = model.roi_head
@@ -223,11 +266,117 @@ def loss_and_grads(model, batch, seed=5, hard_scores=None, seen=None):
             gt_mask_crops=None if crops is None else crops.to(dev)))
         total.backward()
     finally:
+        if rpn is not None:
+            if own is None:
+                del rpn.get_proposals
+            else:
+                rpn.get_proposals = own
         if mining:
             del head._candidate_hard_scores
     return ({k: float(v.detach()) for k, v in logs.items()},
             {k: p.grad.detach().cpu().clone()
              for k, p in model.named_parameters() if p.grad is not None})
+
+
+def rpn_candidates(rpn, shared):
+    """Each level's candidates as ``RPNHead.get_proposals`` ranks them, from
+    the shared features: (logits (B, n), regressions (B, 4, n), anchors
+    (n, 4)) in (anchor, position) order."""
+    mlvl_anchors = rpn.anchor_generator.grid_anchors(
+        [tuple(x.shape[2:]) for x in shared])
+    return [rpn._level_candidates(x, a) for x, a in zip(shared, mlvl_anchors)]
+
+
+def proposals_at(rpn, levels, inds, img_shapes):
+    """The proposals (B, P, 5) of the candidates ``inds`` (B, P), indices
+    into the :func:`rpn_candidates` ``levels`` one level after the other (-1
+    for padding, [0, 0, 0, 0, -1]), decoded and scored as
+    ``RPNHead.get_proposals`` does, and their (B, P) validity."""
+    logits = torch.cat([c[0] for c in levels], 1)
+    preds = torch.cat([c[1] for c in levels], 2).transpose(1, 2)
+    anchors = torch.cat([c[2] for c in levels])
+    valid = inds >= 0
+    safe = inds.clamp(min=0)
+    boxes = rpn.bbox_coder.decode(
+        anchors[safe], torch.gather(preds, 1, safe[..., None].expand(
+            *safe.shape, 4)), max_shape=img_shapes)
+    dets = torch.cat([boxes, torch.sigmoid(
+        torch.gather(logits, 1, safe))[..., None]], -1)
+    return (torch.where(valid[..., None], dets,
+                        dets.new_tensor([0., 0., 0., 0., -1.])), valid)
+
+
+def match_proposals(dets, valid, other, other_valid, tol=1e-2):
+    """For each of the proposals ``dets`` (B, P, 5), the index of a valid
+    proposal of ``other`` (B, Q, 5) with every corner within ``tol`` pixels
+    and the score within ``tol`` / 1000; -1 where there is none or the slot
+    is padding (``valid`` (B, P) false). On the CPU."""
+    dets, valid, other, other_valid = (t.detach().cpu() for t in (
+        dets, valid, other, other_valid))
+    scale = dets.new_tensor([1., 1., 1., 1., 1e3])
+    out = torch.full(valid.shape, -1, dtype=torch.long)
+    for b in range(dets.shape[0]):
+        q = torch.nonzero(other_valid[b]).squeeze(1)
+        if len(q) == 0:
+            continue
+        ref = other[b, q] * scale
+        for s in range(0, dets.shape[1], 256):
+            d, j = torch.cdist(dets[b, s:s + 256] * scale, ref,
+                               p=float('inf')).min(1)
+            out[b, s:s + 256] = torch.where(
+                valid[b, s:s + 256] & (d <= tol), q[j], -1)
+    return out
+
+
+def unmatched(dets, valid, other, other_valid):
+    """How many valid proposals of ``dets`` have none in ``other`` at the
+    same box and score (:func:`match_proposals`), over the batch."""
+    return int(((match_proposals(dets, valid, other, other_valid) < 0)
+                & valid.cpu()).sum())
+
+
+def chosen_candidates(rpn, seen):
+    """The candidate of each of an RPN's proposals, an entry of
+    :func:`loss_and_grads`' ``rpn_seen``, found by value among that RPN's
+    :func:`rpn_candidates` on the same features: (B, P) indices for
+    :func:`proposals_at`, -1 for padding."""
+    shared, img_shapes, _, dets, valid = seen
+    with torch.no_grad():
+        levels = rpn_candidates(rpn, shared)
+        b, n = len(dets), sum(c[0].shape[1] for c in levels)
+        every, _ = proposals_at(rpn, levels, torch.arange(
+            n, device=dets.device).expand(b, n), img_shapes)
+    inds = match_proposals(dets, valid, every,
+                           torch.ones(b, n, dtype=torch.bool))
+    if ((inds < 0) & valid.cpu()).any():
+        raise RuntimeError('a proposal is none of its RPN\'s candidates')
+    return inds
+
+
+def selection_faults(rpn, cpu_rpn, seen):
+    """The card's selection of proposals held against the plain path's: the
+    card RPN's own choice ``seen``, an entry of :func:`loss_and_grads`'
+    ``rpn_seen``, against what ``cpu_rpn``'s ``get_proposals`` (top
+    ``nms_pre`` a level, decode, NMS, top ``nms_post``) chooses on the CPU
+    from the same candidates, the card's logits and regressions. Two
+    different sets of numbers rightly choose differently where two scores
+    or an overlap tie within rounding, which at random weights some do;
+    on the same candidates only the decode's rounding differs, so a correct
+    selection differs in none. Returns how many proposals of either choice
+    the other lacks."""
+    shared, img_shapes, cfg, dets, valid = seen
+    with torch.no_grad():
+        levels = iter([tuple(t.cpu() for t in c)
+                       for c in rpn_candidates(rpn, shared)])
+    cpu_rpn._level_candidates = lambda x, anchors: next(levels)
+    try:
+        want, want_valid = cpu_rpn.get_proposals(
+            None, img_shapes.cpu(), cfg,
+            [torch.empty(x.shape[0], 0, *x.shape[2:]) for x in shared])
+    finally:
+        del cpu_rpn._level_candidates
+    return (unmatched(dets, valid, want, want_valid)
+            + unmatched(want, want_valid, dets, valid))
 
 
 def differences(a, b):
@@ -264,35 +413,53 @@ def _hard_reading(sampler, cpu_seen, other_seen):
 def compare_with_cpu(model, cpu, batch, seed=5):
     """One f32 ``forward_train`` + backward of ``batch`` on ``model`` (the
     card) and on ``cpu`` (the same weights, plain path), and once more on
-    the CPU with one thread, all with the same sampling draws. With an
-    OHEM sampler each run computes its hard scores, which are held against
-    the CPU's, and then all three rank the candidates by the CPU's: a
-    difference of f32 rounding would otherwise swap near-ties in the
-    ranking and with them the sampled RoIs.
+    the CPU with one thread, all with the same sampling draws and on the
+    CPU's choice of proposals: each run's RPN ranks and suppresses its own
+    scores, and where two scores or an overlap tie within f32 rounding (at
+    random weights some do) its top-k or NMS keeps another anchor, which
+    moves the RoI head's candidates and with them every loss and gradient
+    after it. So the card and the one-thread CPU decode the CPU's
+    candidates from their own regressions (:func:`chosen_candidates`), and
+    the card's own choice is held apart, against the plain path's selection
+    from the card's candidates (:func:`selection_faults`, which must find
+    none); how many of the CPU's proposals each run's own choice lacks is
+    reported. With an OHEM sampler each run computes its hard scores, which
+    are held against the CPU's, and then all three rank the candidates by
+    the CPU's: a difference of f32 rounding would otherwise swap near-ties
+    in the ranking and with them the sampled RoIs.
 
     Returns a dict: ``loss_err`` and ``loss_spread`` (per loss, relative;
     card against CPU, and the CPU with one thread against all), ``grad_err``
     and ``grad_spread`` (``(largest relative difference, parameter)``),
     ``params`` (how many parameters have a gradient), ``same_params``,
     ``cpu_s``, ``threads``, ``ok`` under ``LOSS_RTOL`` / ``GRAD_RTOL`` (and
-    ``HARD_RTOL``), ``cpu``, the CPU's :func:`loss_and_grads`, and with
-    OHEM ``hard``: the scores' largest value, and for the card and the
-    one-thread CPU their scores' largest difference from the CPU's over the
-    candidates with the CPU's boxes, how many candidates have other boxes,
-    and how many sampled candidates their own scores would have changed.
+    ``HARD_RTOL``), ``cpu``, the CPU's :func:`loss_and_grads`; with an RPN
+    ``selection_faults`` and ``other_proposals`` (for the one-thread CPU
+    and the card, how many of the CPU's proposals their own RPN did not
+    choose); and with OHEM ``hard``: the scores' largest value, and for the
+    card and the one-thread CPU their scores' largest difference from the
+    CPU's over the candidates with the CPU's boxes, how many candidates have
+    other boxes, and how many sampled candidates their own scores would
+    have changed.
     """
     t0 = time.time()
     cpu_seen, alt_seen, card_seen = [], [], []
-    want = loss_and_grads(cpu, batch, seed, seen=cpu_seen)
+    rpn_seen = [[], [], []]
+    want = loss_and_grads(cpu, batch, seed, seen=cpu_seen,
+                          rpn_seen=rpn_seen[0])
     cpu_s = time.time() - t0
     hard = cpu_seen[0][0] if cpu_seen else None
+    chosen = (chosen_candidates(cpu.rpn_head, rpn_seen[0][0])
+              if rpn_seen[0] else None)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        alt = loss_and_grads(cpu, batch, seed, hard, alt_seen)
+        alt = loss_and_grads(cpu, batch, seed, hard, alt_seen, chosen,
+                             rpn_seen[1])
     finally:
         torch.set_num_threads(threads)
-    got = loss_and_grads(model, batch, seed, hard, card_seen)
+    got = loss_and_grads(model, batch, seed, hard, card_seen, chosen,
+                         rpn_seen[2])
     loss_spread, grad_spread = differences(want, alt)
     loss_err, grad_err = differences(want, got)
     same = sorted(got[1]) == sorted(want[1])
@@ -303,6 +470,13 @@ def compare_with_cpu(model, cpu, batch, seed=5):
                grad_err=grad_err, grad_spread=grad_spread,
                params=len(want[1]), same_params=same, cpu_s=cpu_s,
                threads=threads, cpu=want)
+    if chosen is not None:
+        props = rpn_seen[0][0][3:]
+        out['other_proposals'] = [unmatched(*props, *r[0][3:])
+                                  for r in rpn_seen[1:]]
+        out['selection_faults'] = selection_faults(
+            model.rpn_head, cpu.rpn_head, rpn_seen[2][0])
+        ok = ok and out['selection_faults'] == 0
     if hard is not None:
         sampler = cpu.roi_head.sampler
         card_err, card_moved, card_flips = _hard_reading(sampler, cpu_seen,

@@ -29,8 +29,9 @@
    kernel C against its plain version on the first step's cotangent, RoIs
    and levels, and times it there.
 6. Checks one f32 training step on the card against the same weights (the
-   trainer's seeded starting weights) and sampling priorities on the CPU
-   (plain path) on a small image: losses and gradients.
+   trainer's seeded starting weights), sampling priorities and choice of
+   proposals on the CPU (plain path) on a small image: losses and
+   gradients.
 7. Serves the AR-RFF flagship (config #4,
    ``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``) at full width:
    two bs1 and two bs2 requests in bf16 and two bs1 in f32. Each request
@@ -187,6 +188,46 @@
 36. Serves Faster R-CNN + BFP (``faster_rcnn_r50_fpn_bfp_1x_coco.py``: BFP
     at refine level 2 of P2-P6, N = 4200): A and B once a request; against
     the CPU.
+37. Serves Faster R-CNN R50 caffe + FPN (``faster_rcnn_r50_caffe_fpn_1x_
+    coco.py``: each stage's stride on its first 1x1 conv) at bs1 and bs2
+    bf16 and bs1 f32: no A, B once a request; against the CPU.
+38. Trains it (bs2, a bf16 and an f32 step: B and C once each), then a
+    step against the CPU; then through the train and test CLIs as 21, on
+    8 box PNGs under ``build/caffe_coco`` through its BGR
+    ``Normalize(to_rgb=False)`` pipeline: no A, B and C once an iteration,
+    B once an evaluated image.
+39. Serves Libra R-CNN + ARFE on ResNeXt-101 64x4d (``libra_faster_rcnn_
+    x101_64x4d_fpn_1x_coco.py``, its classifier scaled by ``CLS_SCALE``):
+    A and B once a request; against the CPU; kernel A at its refine level
+    (N = 1050) as 23.
+40. Trains it (A, B and C once a step), then a step against the CPU.
+41. Serves Mask R-CNN C4 (``mask_rcnn_r50_caffe_c4_1x_coco.py``: a caffe
+    ResNet-50 to stage 3, no neck, the RPN and RoIAlign on one stride-16
+    level of 1024 channels, the shared ``layer4`` on every RoI): no A, B
+    twice a request at 14 x 14 (the proposals, then the detection slots),
+    mask logits (B, 100, 14, 14); against the CPU, mask logits included.
+42. Holds kernel B on both launches' arguments of the first bs1 and bs2
+    requests (R = 1000, 2000 and 100, 200), bf16 and f32, bit for bit.
+43. Trains Mask R-CNN C4 (a bf16 and an f32 step: B and C twice, the 2 x
+    512 sampled RoIs and the 2 x 128 mask RoIs; the shared head's last
+    block, the mask head and the classifier move); kernel C at 1024
+    channels on both cotangents of the first step (1e-5); the RPN stage's
+    time and memory at the training ``nms_pre`` (12000); a step against
+    the CPU with 256 proposals and 64 sampled RoIs an image.
+44. Serves Faster R-CNN C4 (``faster_rcnn_r50_caffe_c4_1x_coco.py``): no
+    A, B once a request; against the CPU.
+45. Serves Cascade Mask R-CNN R50 (``cascade_mask_rcnn_r50_fpn_1x_coco.
+    py``): no A, B three times a request, boxes only; against the CPU;
+    kernel B on each stage's served RoIs as 19.
+46. Trains it (B and C six times a step: each stage's boxes at 7 x 7,
+    then its mask RoIs at 14 x 14; every stage's mask head moves); kernel
+    B on each stage's mask RoIs of the first step (bit for bit) and kernel
+    C on each of its six cotangents (1e-5), keyed by stage; a step against
+    the CPU.
+47. Serves Mask R-CNN R50 caffe + FPN as mmdet 1.x trained it
+    (``mask_rcnn_r50_caffe_fpn_poly_1x_coco_v1.py``: the legacy +1 box
+    coder, RoIAlign with ``sample_num=2``): one bs1 request, no A, B
+    twice; against the CPU.
 
 Prints each phase's wall seconds and the total, one JSON line of kernel
 numbers (``launches`` counts the flagship's training run,
@@ -198,13 +239,19 @@ phases 14, 16 and 17's test CLI, ``launches_{cascade,retina}_{serve,train,
 eval}`` those of phases 18, 20, 21 and 22, 24, 25,
 ``launches_libra_{serve,train,eval}``, ``launches_libra101_{serve,train}``,
 ``launches_libra_retina_{serve,train}``, ``launches_ohem_{serve,train}`` and
-``launches_bfp_serve`` those of phases 26-36; the ``_arrff_r*`` keys
+``launches_bfp_serve`` those of phases 26-36,
+``launches_{caffe,libra_x101,c4_mask,c4,cascade_mask,v1}_serve``,
+``launches_{caffe,libra_x101,c4_mask,cascade_mask}_train`` and
+``launches_caffe_eval`` those of phases 37-47; the ``_arrff_r*`` keys
 are kernels B and C at AR-RFF's shapes, the ``_mask_r*`` keys B and C at 14
 x 14 bins, the ``_cascade_s{i}_r*`` keys B and C on cascade stage i's
 inputs, the ``_retina_n1050*`` keys A at RetinaNet's refine level, the
 ``_libra_n1050*``, ``_libra_r*`` keys A, B and C on Libra's arguments, the
 ``_bfp_n4200*`` keys A at Libra RetinaNet's BFP level, the ``_ohem_r*`` keys
-B on OHEM's hard-mining RoIs, the
+B on OHEM's hard-mining RoIs, the ``_libra_x101_n1050*`` keys A on Libra
+X101's refine level, the ``_c4_r*`` and ``_c4_mask_r*`` keys B and C at the
+C4 shapes (14 x 14, 1024 channels; the boxes' and the masks' launches), the
+``_cascade_mask_s{i}_*`` keys B and C on cascade mask stage i's inputs, the
 ``_eval_*`` keys A and B on a real image's arguments, the ``train_run_*``
 keys phase 13's numbers, ``mask_paste_ms_per_image`` phase 17's), then the
 card's name and power limit, and as the last line ``{"ok": true, "device":
@@ -214,6 +261,7 @@ any phase fails.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import sys
@@ -600,6 +648,12 @@ def check_roi_align_bwd(gen):
         backward_bf16_bound_ms=step_bound)
 
 
+def _level_strides(shapes):
+    """The strides of levels of (B, h, w, ...) ``shapes`` of an 800x1344
+    image: (4, 8, 16, 32) for an FPN's four, (16,) for a C4 trunk's."""
+    return tuple(H // s[1] for s in shapes)
+
+
 def _bf16_backward_ms(g, rois, lvls, shapes):
     """What a bf16 training step pays for the RoIAlign gradient:
     ``RoIAlignFunction.backward`` at bf16 levels (the bf16 cotangent cast to
@@ -611,7 +665,7 @@ def _bf16_backward_ms(g, rois, lvls, shapes):
     from arfe_tpu_torch.ops import roi_align as ra
     ctx = SimpleNamespace(
         saved_tensors=(rois, lvls),
-        args=(tuple(g.shape[1:3]), (4, 8, 16, 32), 2, True),
+        args=(tuple(g.shape[1:3]), _level_strides(shapes), 2, True),
         levels=[(torch.Size(s), torch.bfloat16) for s in shapes])
     g16 = g.to(torch.bfloat16)
     ms = cuda_ms(lambda: ra.RoIAlignFunction.backward(ctx, g16), graph=True)
@@ -631,11 +685,12 @@ def check_roi_align_bwd_step(args, key='_step_rois', plain=False):
     version's time with ``plain``). The row's keys end in ``key``."""
     from arfe_tpu_torch.ops import roi_align as ra
     g, rois, lvls, shapes = args
-    out_size = tuple(g.shape[1:3])
-    got = ra.roi_align_backward_cuda(g, rois, lvls, shapes, out_size)
-    want = ra.roi_align_backward_plain(g, rois, lvls, shapes, out_size)
+    out_size, strides = tuple(g.shape[1:3]), _level_strides(shapes)
+    got = ra.roi_align_backward_cuda(g, rois, lvls, shapes, out_size, strides)
+    want = ra.roi_align_backward_plain(g, rois, lvls, shapes, out_size,
+                                       strides)
     scale = ra.roi_align_backward_plain(g.abs(), rois, lvls, shapes,
-                                        out_size)
+                                        out_size, strides)
     torch.cuda.synchronize()
     ok, err = True, 0.0
     for d, w, s in zip(got, want, scale):
@@ -643,14 +698,15 @@ def check_roi_align_bwd_step(args, key='_step_rois', plain=False):
         ok = ok and bool((diff <= 1e-5 * s + 1e-7).all()) \
             and bool(torch.isfinite(d).all())
         err = max(err, diff.max().item())
-    ms = cuda_ms(lambda: ra.roi_align_backward_cuda(g, rois, lvls, shapes,
-                                                    out_size), graph=True)
+    ms = cuda_ms(lambda: ra.roi_align_backward_cuda(
+        g, rois, lvls, shapes, out_size, strides), graph=True)
     pixels = sum(b * h * w for b, h, w, _ in shapes)
     bound = (g.numel() + pixels * g.shape[-1]) * 4 / HBM_BYTES_PER_S * 1e3
-    touched = _touched_pixels(shapes, rois, lvls, out_size=out_size)
-    per_level = torch.bincount(lvls.long(), minlength=4).tolist()
+    touched = _touched_pixels(shapes, rois, lvls, strides, out_size)
+    per_level = torch.bincount(lvls.long(), minlength=len(shapes)).tolist()
     print(f'roi_align_bwd on a training step\'s RoIs R={rois.shape[0]} at '
-          f'{out_size[0]} x {out_size[1]} bins (per level {per_level}, '
+          f'{out_size[0]} x {out_size[1]} bins, {g.shape[-1]} channels (per '
+          f'level {per_level}, '
           f'{touched} distinct pixels): max_abs_err '
           f'{err:.3e} (tol 1e-5 sum|terms| + 1e-7) {"ok" if ok else "FAIL"}; '
           f'kernel {ms:.4f} ms, bound {bound:.4f} ms')
@@ -659,7 +715,7 @@ def check_roi_align_bwd_step(args, key='_step_rois', plain=False):
            'backward_bf16_ms': step_ms, 'backward_bf16_bound_ms': step_bound}
     if plain:
         row['plain_ms'] = cuda_ms(lambda: ra.roi_align_backward_plain(
-            g, rois, lvls, shapes, out_size), iters=5)
+            g, rois, lvls, shapes, out_size, strides), iters=5)
         print(f'roi_align_bwd R={rois.shape[0]}: plain {row["plain_ms"]:.4f}'
               ' ms')
     return ok, {k + key: v for k, v in row.items()}
@@ -747,22 +803,24 @@ def serve(model, requests):
     launched kernel A once (never without a NonLocal refine in the neck)
     and kernel B exactly ``model.num_extractions``
     times (one extraction of all its RoIs per RoI head stage: a cascade's
-    three, a Mask R-CNN's boxes' 7 x 7 and its detections' 14 x 14 bins, a
-    single-stage detector none) and gave finite detections (and mask
-    logits) of the contract's shape, and the kernels' arguments in the
-    first request of each (batch, dtype): A's under (batch, dtype, 'a'),
-    B's under (batch, dtype), and for each 7 x 7 stage under (batch, dtype,
-    'stage', i), at 14 x 14 bins under (batch, dtype, 14)."""
+    three, a Mask R-CNN's boxes' and its detections', a single-stage
+    detector none) and gave finite detections (and, where the model serves
+    masks, square mask logits) of the contract's shape, and the kernels'
+    arguments in the first request of each (batch, dtype): A's under
+    (batch, dtype, 'a'), each B launch's under (batch, dtype, 'launch', j)
+    in launch order, B's first under (batch, dtype), and for each 7 x 7
+    stage under (batch, dtype, 'stage', i), the first at other bins under
+    (batch, dtype, bins)."""
     from arfe_tpu_torch.ops import fused_attention as fa
     from arfe_tpu_torch.ops import roi_align as ra
     kernel_a, kernel_b, args = fa.fused_attention_cuda, ra.roi_align_cuda, {}
     gen = torch.Generator(device='cuda').manual_seed(2)
     ok = True
-    with_mask, n_b = model.with_mask, model.num_extractions
+    with_mask, n_b = model.serves_masks, model.num_extractions
     n_a = int(bench.refine_block(model) is not None)
     fa.launches = ra.launches = 0
     for i, (b, dt) in enumerate(requests):
-        stage = [0]
+        stage, order = [0], [0]
 
         def keep_a(q, k, v, *rest, key=(b, dt, 'a')):
             args.setdefault(key, (q.clone(), k.clone(), v.clone()))
@@ -770,14 +828,15 @@ def serve(model, requests):
 
         def keep_args(feats, rois, lvls, out_size=(7, 7), *rest, key=(b, dt),
                       **kwargs):
+            kept = (feats, rois.clone(), lvls.clone())
+            args.setdefault(key + ('launch', order[0]), kept)
+            args.setdefault(key, kept)
+            order[0] += 1
             if tuple(out_size) == (7, 7):
-                args.setdefault(key + ('stage', stage[0]),
-                                (feats, rois.clone(), lvls.clone()))
-                args.setdefault(key, args[key + ('stage', stage[0])])
+                args.setdefault(key + ('stage', stage[0]), kept)
                 stage[0] += 1
             else:
-                args.setdefault(key + (out_size[0],),
-                                (feats, rois.clone(), lvls.clone()))
+                args.setdefault(key + (out_size[0],), kept)
             return kernel_b(feats, rois, lvls, out_size, *rest, **kwargs)
         fa.fused_attention_cuda, ra.roi_align_cuda = keep_a, keep_args
         img = (torch.randn((b, H, W, 3), generator=gen, device='cuda')
@@ -798,14 +857,16 @@ def serve(model, requests):
         good = (dets.shape == (b, 100, 5) and labels.shape == (b, 100)
                 and bool(torch.isfinite(dets).all()) and da == n_a
                 and dr == n_b and len(out) == 3 + with_mask)
-        rois = ' + '.join(f'{args[b, dt, "stage", j][1].shape[0]}'
-                          for j in range(stage[0])) + ' RoIs' \
-            if (b, dt) in args else 'no RoIs'
+        launched = [args[b, dt, 'launch', j] for j in range(order[0])] \
+            if (b, dt, 'launch', 0) in args else []
+        rois = ' + '.join(
+            f'{a[1].shape[0]}' for a in launched) + ' RoIs' \
+            if launched else 'no RoIs'
         if with_mask:
-            good = good and out[3].shape == (b, 100, 28, 28) \
+            side = out[3].shape[2]
+            good = good and out[3].shape == (b, 100, side, side) \
                 and bool(torch.isfinite(out[3]).all())
-            rois += (f' at 7 x 7 and {args[b, dt, 14][1].shape[0]} at 14 x '
-                     f'14, mask logits {tuple(out[3].shape)} in '
+            rois += (f', mask logits {tuple(out[3].shape)} in '
                      f'[{out[3].min().item():.3f}, {out[3].max().item():.3f}]')
         ok = ok and good
         print(f'request {i}: bs{b} {str(dt)[6:]} {ms:.2f} ms, '
@@ -896,10 +957,11 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
     and whether every step gave finite losses (a "+fac" head's
     ``loss_multi_cls`` and a mask head's ``loss_mask`` among them) and
     launched kernel A once (never without a NonLocal refine in the neck)
-    and B and C ``model.num_extractions`` times each (once, twice with a
-    mask head, three times in a cascade, never in a single-stage
-    detector; B once more with OHEM's hard mining, whose forward over
-    every candidate builds no graph), the frozen parameters
+    and B and C ``model.num_step_extractions`` times each (once, twice
+    with a mask head, three times in a cascade, six in a cascade with mask
+    heads, never in a single-stage detector; B once more with OHEM's hard
+    mining, whose forward over every candidate builds no graph), the
+    frozen parameters
     stayed without a gradient, every trainable tensor moved whose gradient
     was, in some step, large enough for the step to move it in f32 (the
     others are named: those with a gradient exactly 0 in every step, and
@@ -918,8 +980,8 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
     if prepare is not None:
         prepare(model)
     step = make_train_step(model, opt, scheduler)
-    with_mask, n_b = model.with_mask, model.num_extractions
-    n_a, n_fwd, _ = bench.step_launches(model)
+    with_mask = model.with_mask
+    n_a, n_fwd, n_b = bench.step_launches(model)
     batches = {dt: bench.synthetic_batch(2, dtype=dt, masks=with_mask)
                for dt in set(dtypes)}
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
@@ -1005,7 +1067,7 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
                 and grew == [n_a, n_fwd, n_b] \
                 and ('loss_multi_cls' in logs
                      or not model.with_multi_cls) \
-                and ('loss_mask' in logs) == with_mask
+                and any(k.endswith('loss_mask') for k in logs) == with_mask
             ok = ok and good
             rois = ' and '.join(f'{a[1].shape[0]} RoIs at {a[0].shape[1]} x '
                                 f'{a[0].shape[1]}' for a in step_args['all'])
@@ -1062,7 +1124,8 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
           f'gradient {no_grad[:3]}; attention gradient live {live}; of '
           f'{must_move} {len(mine) - len(mine_stuck)} of {len(mine)} tensors '
           f'moved {"ok" if good else "FAIL"}')
-    ar_fpn = hasattr(model.neck[-1], 'reduce_convs')
+    ar_fpn = isinstance(model.neck, torch.nn.Sequential) \
+        and hasattr(model.neck[-1], 'reduce_convs')
     for dt, batch in batches.items() if ar_fpn else ():
         print(f'AR-FPN attention-map convs per level in {str(dt)[6:]}, '
               'outputs positive before the ReLU and of those unsaturated by '
@@ -1131,22 +1194,31 @@ def reduce_conv_activity(model, img):
 def train_reference_check(model, start, cfg=FLAGSHIP_CFG, readings=True):
     """The trainer's seeded starting weights ``start`` on the card and on
     the CPU; one f32 ``forward_train`` + backward of a (2, 320, 480) batch
-    with the same sampling priorities on both, and once more on the CPU with
-    one thread (``bench.compare_with_cpu``). The starting weights give the
+    with the same sampling priorities on both and the CPU's choice of
+    proposals, and once more on the CPU with one thread
+    (``bench.compare_with_cpu``). The starting weights give the
     check the same input in every run: after the five steps above, whose
     bf16 sums and atomic adds differ from run to run, some parameters'
     gradients can differ by more than the limit between two summation
     orders on the CPU alone. Each loss within ``bench.LOSS_RTOL`` + 4x
     the CPU's own spread, relative; each parameter's largest gradient
     difference within ``bench.GRAD_RTOL`` of its largest |g|, with the CPU's
-    spread printed beside it. The kernels' own checks above hold them to f32
-    rounding. With ``readings``, also what the check reads for a 3% error
-    of kernel C on one level."""
+    spread printed beside it; and the card's own choice of proposals the
+    plain path's selection from the card's candidates, to the proposal. The
+    kernels' own checks above hold them to f32 rounding. With ``readings``,
+    also what the check reads for a 3% error
+    of kernel C on one level. A ``cfg`` that is a ``Config`` (not the
+    model's path: fewer RoIs, :func:`fewer_rois`) builds the card's model
+    for the check too."""
     from arfe_tpu_torch.apis import init_detector
     h, w = 320, 480
     with torch.no_grad():
         for k, p in model.named_parameters():
             p.copy_(start[k])
+    if not isinstance(cfg, str):
+        card = init_detector(cfg, train=True)
+        card.load_state_dict(model.state_dict())
+        model = card
     cpu = init_detector(cfg, device='cpu', train=True)
     cpu.load_state_dict(model.state_dict())
     batch = bench.synthetic_batch(2, h, w, (float(h), float(w)),
@@ -1163,8 +1235,14 @@ def train_reference_check(model, start, cfg=FLAGSHIP_CFG, readings=True):
           f'over its parameter\'s largest |g|: {r["grad_err"][0]:.2e} at '
           f'{r["grad_err"][1]} (CPU 1 thread vs all: '
           f'{r["grad_spread"][0]:.2e} at {r["grad_spread"][1]}; tol '
-          f'{bench.GRAD_RTOL:g}) over {r["params"]} parameters '
-          f'{"ok" if r["ok"] else "FAIL"}')
+          f'{bench.GRAD_RTOL:g}) over {r["params"]} parameters'
+          + ('' if 'selection_faults' not in r else
+             '; all on the CPU\'s proposals, of which the card\'s own RPN '
+             f'chose others for {r["other_proposals"][1]}, the CPU\'s on 1 '
+             f'thread for {r["other_proposals"][0]}; the card\'s own choice '
+             'against the plain selection from its candidates: '
+             f'{r["selection_faults"]} proposals differ (none may)')
+          + f' {"ok" if r["ok"] else "FAIL"}')
     if 'hard' in r:
         hard = r['hard']
         print(f'train reference, OHEM hard scores (largest {hard["max"]:.4f})'
@@ -1217,7 +1295,9 @@ def level_error_readings(model, batch, r, scale=1.03):
 # and 0.082).
 CLS_SCALE = {'arrff': 0.1, 'fac': 0.006, 'mask': 1.0, 'cascade': 2.0,
              'retina': 7.0, 'libra': 1.2, 'libra101': 1.0,
-             'libra_retina': 5.0, 'bfp': 1.0}
+             'libra_retina': 5.0, 'bfp': 1.0, 'caffe': 1.15,
+             'libra_x101': 250.0, 'c4_mask': 0.33, 'c4': 0.33,
+             'cascade_mask': 2.0, 'v1': 1.15}
 # Mask R-CNN's classifier is the flagship's and does not saturate (at
 # 320x480: 19 detections score >= 0.1, the 100th 0.067); its entry draws
 # conv_out on the CPU, as the others do. Cascade R-CNN averages its three
@@ -1228,7 +1308,13 @@ CLS_SCALE = {'arrff': 0.1, 'fac': 0.006, 'mask': 1.0, 'cascade': 2.0,
 # 0.075). Libra at 1.2: 48 score >= 0.1, the 100th 0.091; R101 (its
 # residual branches damped, ``damp_residuals``) at 1: 38, 0.089; Libra
 # RetinaNet at 5: 3, 0.086; Faster + BFP at 1: 32, 0.071 (all on the CPU at
-# 320x480).
+# 320x480). The caffe Faster and v1 Mask R-CNN at 1.15 and the C4 detectors
+# at 0.33: their scores crowd (at 1.1 and 0.33, 6 and 25 score >= 0.1, the
+# 100th 0.090 and 0.096). ResNeXt-101 at the seeded weights does the
+# opposite of R101: its grouped 3x3 convs, initialised by fan-out over all
+# output channels, shrink every residual branch, its features fall to ~0.1
+# and its logits to ~4e-3, all scores at 1/81; at 250, 73 score >= 0.1,
+# the 100th 0.097. Cascade Mask R-CNN at 2: 12, 0.086.
 
 
 def _roi_census(rois, lvls, what):
@@ -1585,9 +1671,11 @@ def evaluate_arrff():
     print(f'eval host pipeline (read, resize, normalize, pad) in the main '
           f'process: {host_ms:.2f} ms per image')
     runs = {}
+    # first runs: one-time set-up per shape, without the loader's workers
+    loader0 = build_test_loader(_eval_config(workers=0))[1]
     with RequestLog(model) as log:
-        for dt in (bf, f32):          # first runs: one-time set-up per shape
-            runs[dt, 'warm'] = _timed_run(model, loader, dt, log)[0]
+        for dt in (bf, f32):
+            runs[dt, 'warm'] = _timed_run(model, loader0, dt, log)[0]
         # ground truth from the bf16 detections, so that the timed runs'
         # evaluation does the work of a real one
         synthetic.write_annotations(
@@ -1641,7 +1729,6 @@ def evaluate_arrff():
     # the card's busy share of an evaluation run
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    loader0 = build_test_loader(_eval_config(workers=0))[1]
     for workers, ldr in ((0, loader0), (2, loader)):
         t1 = time.perf_counter()
         single_device_test(model, ldr, show_progress=False, dtype=bf)
@@ -2334,22 +2421,25 @@ RETINA_PORT_CFG = 'arfe_tpu_torch/configs/retinanet_r50_arfpn_1x_coco.py'
 RETINA_SPREAD_SCALES = tuple(2.0 ** i for i in range(14))
 
 
-def _roi_align_bit_for_bit(feats, rois, lvls, dt, what, key, row):
+def _roi_align_bit_for_bit(feats, rois, lvls, dt, what, key, row,
+                           out_size=(7, 7)):
     """Kernel B against ``roi_align_pyramid_plain`` on these arguments, the
-    levels cast to ``dt``: equal bit for bit; timed by graph replay beside
-    its bound and the plain version's time, which go into ``row`` under
-    ``key`` (``_f32`` appended in f32). Returns whether it was equal."""
+    levels cast to ``dt``, at ``out_size`` bins: equal bit for bit; timed
+    by graph replay beside its bound and the plain version's time, which go
+    into ``row`` under ``key`` (``_f32`` appended in f32). Returns whether
+    it was equal."""
     from arfe_tpu_torch.ops import roi_align as ra
-    strides = (4, 8, 16, 32)
+    strides = _level_strides([f.shape for f in feats])
     feats = [f.to(dt) for f in feats]
     num = rois.shape[0]
 
     def kernel():
-        return ra.roi_align_cuda(feats, rois, lvls, (7, 7), strides, 2, True)
+        return ra.roi_align_cuda(feats, rois, lvls, out_size, strides, 2,
+                                 True)
 
     def plain():
-        return ra.roi_align_pyramid_plain(feats, rois, lvls, (7, 7), strides,
-                                          2, True)
+        return ra.roi_align_pyramid_plain(feats, rois, lvls, out_size,
+                                          strides, 2, True)
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
@@ -2357,10 +2447,12 @@ def _roi_align_bit_for_bit(feats, rois, lvls, dt, what, key, row):
     del got, ref
     ms = cuda_ms(kernel, graph=True)
     plain_ms = cuda_ms(plain, iters=5)
-    bound, touched = _roi_align_bound(feats, rois, lvls, strides)
-    print(f'roi_align {what} R={num} {str(dt)[6:]} (per level '
-          f'{torch.bincount(lvls.long(), minlength=4).tolist()}): equal to '
-          f'the plain version bit for bit {same}, max_abs_err {err:.3e}; '
+    bound, touched = _roi_align_bound(feats, rois, lvls, strides, out_size)
+    print(f'roi_align {what} R={num} at {out_size[0]} x {out_size[1]}, '
+          f'{feats[0].shape[-1]} channels, {str(dt)[6:]} (per level '
+          f'{torch.bincount(lvls.long(), minlength=len(feats)).tolist()}): '
+          f'equal to the plain version bit for bit {same}, max_abs_err '
+          f'{err:.3e}; '
           f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms '
           f'({touched} distinct pixels) {"ok" if same else "FAIL"}')
     key += '_f32' if dt == torch.float32 else ''
@@ -2551,12 +2643,12 @@ def retinanet(requests, train_dtypes):
     return results, launches_serve, launches_train, rows
 
 
-def train_and_evaluate(name, port_cfg, root, n_b, name_limit):
+def train_and_evaluate(name, port_cfg, root, n_b, name_limit, n_a=1):
     """Writes 8 box PNGs under ``root``, trains the ``port_cfg`` detector at
     full width through ``tools.train.main`` (one epoch of 4 iterations, bs2
     bf16), runs ``tools.test.main`` on ``latest.pth`` with ``--eval bbox``,
-    and checks: every iteration launches A once, B and C ``n_b`` times;
-    every evaluated image A once and B ``n_b`` times; the six stats print;
+    and checks: every iteration launches A ``n_a`` times, B and C ``n_b``
+    times; every evaluated image A ``n_a`` times and B ``n_b`` times; the six stats print;
     the card's f32 stats with ``latest.pth`` within 1e-3 of the CPU's plain
     path at ``CPU_SCALE``, ground truth seeded from the CPU's detections,
     every detection matched one for one. A two-stage detector keeps every
@@ -2594,7 +2686,7 @@ def train_and_evaluate(name, port_cfg, root, n_b, name_limit):
     losses = [v for e in history if e['mode'] == 'train'
               for k, v in e.items() if 'loss' in k]
     good = len(run.iters) == MASK_TRAIN_ITERS \
-        and set(per_iter) == {(1, n_b, n_b)} and len(losses) > 0 \
+        and set(per_iter) == {(n_a, n_b, n_b)} and len(losses) > 0 \
         and all(np.isfinite(losses)) and os.path.exists(f'{work}/latest.pth')
     its = sorted(b['start'] - a['start']
                  for a, b in zip(run.iters[1:], run.iters[2:]))
@@ -2625,8 +2717,8 @@ def train_and_evaluate(name, port_cfg, root, n_b, name_limit):
     launches = {'fused_attention': fa.launches, 'roi_align': ra.launches,
                 'roi_align_bwd': ra.bwd_launches}
     n = len(images)
-    good = set(per_request) == {(1, n_b)} and len(per_request) == n \
-        and launches == {'fused_attention': n, 'roi_align': n_b * n,
+    good = set(per_request) == {(n_a, n_b)} and len(per_request) == n \
+        and launches == {'fused_attention': n_a * n, 'roi_align': n_b * n,
                          'roi_align_bwd': 0} \
         and all(k in metrics and np.isfinite(metrics[k]) for k in STATS)
     print(f'{name} test CLI on latest.pth --eval bbox: launches per image '
@@ -2879,6 +2971,310 @@ def faster_bfp(requests):
     return results, launches_serve
 
 
+# --------------------------------------------------------------------------
+# phases 37-50: caffe ResNet, ResNeXt, the C4 layout, Cascade Mask R-CNN
+# and the mmdet 1.x coder
+# --------------------------------------------------------------------------
+
+def caffe(requests, train_dtypes, name_limit):
+    """Faster R-CNN R50 caffe + FPN (``faster_rcnn_r50_caffe_fpn_1x_coco.
+    py``: the stride on each stage's first 1x1 conv, BGR input): (a) served
+    (no A, B once) and against the CPU; (b) trained (B and C once a step)
+    and a step against the CPU; (c) the train and test CLIs on synthetic
+    PNGs through its ``Normalize(to_rgb=False)`` pipeline
+    (``train_and_evaluate``). Returns each check's result and the serving,
+    training and evaluation runs' launches."""
+    cfg = bench.CAFFE_CFG
+    results = {}
+    with phase('caffe: serve'):
+        model = build_detector(cfg, CLS_SCALE['caffe'])
+        print(f'caffe style: layer2.0 conv1 stride '
+              f'{model.backbone.layer2[0].conv1.stride}, conv2 stride '
+              f'{model.backbone.layer2[0].conv2.stride}')
+        launches_serve, results['serve'], _ = serve(model, requests)
+    with phase('caffe: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase('caffe: train'):
+        model, start, launches_train, _, results['train'] = train(
+            cfg, train_dtypes, ('fc_cls', 'fc_reg'))
+    with phase('caffe: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    with phase('caffe: train and evaluate through the CLIs'):
+        results['evaluate'], launches_eval = train_and_evaluate(
+            'caffe', cfg, 'build/caffe_coco', 1, name_limit, n_a=0)
+    return results, launches_serve, launches_train, launches_eval
+
+
+def libra_x101(requests, train_dtypes):
+    """Libra R-CNN + ARFE on ResNeXt-101 64x4d (``libra_faster_rcnn_
+    x101_64x4d_fpn_1x_coco.py``; its served classifier scaled,
+    :data:`CLS_SCALE`): (a) served (A once at N = 1050, B once) and against
+    the CPU; (b) kernel A on the requests' refine level; (c) trained (A, B
+    and C once a step) and a step against the CPU, on the seeded weights.
+    Returns each check's result, the serving and training runs' launches,
+    and the row's additions for A."""
+    cfg = bench.LIBRA_X101_CFG
+    results, row = {}, {}
+    with phase('libra_x101: serve'):
+        model = build_detector(cfg, CLS_SCALE['libra_x101'])
+        conv2 = model.backbone.layer3[0].conv2
+        print(f'ResNeXt-101 64x4d: {len(model.backbone.layer3)} stage-3 '
+              f'blocks, grouped conv {tuple(conv2.weight.shape)} in '
+              f'{conv2.groups} groups')
+        launches_serve, results['serve'], args = serve(model, requests)
+    with phase('libra_x101: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase('libra_x101: kernel A at N = 1050'):
+        results['kernel_a'], row = check_attention_level(
+            args, '_libra_x101', 'Libra + ARFE X101')
+    del args
+    with phase('libra_x101: train'):
+        model, start, launches_train, _, results['train'] = train(
+            cfg, train_dtypes, ('fc_reg',))
+    with phase('libra_x101: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, row
+
+
+def fewer_rois(path, proposals=256, samples=64):
+    """The config at ``path`` with ``proposals`` training proposals an image
+    and ``samples`` sampled RoIs a stage, for a step check whose CPU side
+    would take most of a minute at the config's sizes: the C4 step runs
+    every sampled RoI through the shared ``layer4`` (1.46 GFLOP a RoI,
+    three times with its gradient)."""
+    from arfe_tpu_torch.config import Config
+    cfg = Config.fromfile(path)
+    cfg.train_cfg['rpn_proposal'].update(nms_post=proposals,
+                                         max_num=proposals)
+    rcnn = cfg.train_cfg['rcnn']
+    for stage in rcnn if isinstance(rcnn, list) else [rcnn]:
+        stage['sampler']['num'] = samples
+    return cfg
+
+
+def check_roi_align_c4(args, launch, prefix, what):
+    """Kernel B (:func:`_roi_align_bit_for_bit`, 14 x 14 bins on one
+    stride-16 level of 1024 channels) on the arguments of each first bs1
+    and bs2 request's B launch ``launch``, bf16 and f32 (the bs2 levels cast
+    to f32; bs1's from the f32 request). The row's keys are
+    ``{prefix}_r{R}``."""
+    ok, row = True, {}
+    for b in (1, 2):
+        for dt in (torch.bfloat16, torch.float32):
+            feats, rois, lvls = args.get((b, dt, 'launch', launch)) \
+                or args[b, torch.bfloat16, 'launch', launch]
+            ok = _roi_align_bit_for_bit(
+                feats, rois, lvls, dt, f'{what} B={b}',
+                f'{prefix}_r{rois.shape[0]}', row, (14, 14)) and ok
+    return ok, row
+
+
+def _forward_launch(step_args, j):
+    """Kernel C's arguments in the first step for the forward's B launch
+    ``j`` (autograd runs the backward in its own order)."""
+    return next(a for a, f in zip(step_args['all'],
+                                  step_args['forward_index']) if f == [j])
+
+
+def rpn_reading(model, batch):
+    """The RPN stage of a training step on ``batch``: its wall ms (median
+    of 3, synchronised) and the peak memory it adds, printed; the training
+    proposals' ``nms_pre`` decides the NMS problem's size. Then the card's
+    choice of proposals there against the plain path's selection from the
+    card's candidates (``bench.selection_faults``), which must be the same
+    and fill every slot; returns whether it is."""
+    cfg = model.train_cfg['rpn_proposal']
+    with torch.no_grad():
+        feats = model.extract_feat(batch['img'])
+        shapes = batch['img_shape']
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            props, valid = model.rpn_head.get_proposals(feats, shapes, cfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    anchors = bench.num_anchors(model, H, W)
+    print(f'C4 RPN at bs{batch["img"].shape[0]}: {anchors} anchors an image, '
+          f'nms_pre {cfg["nms_pre"]}, {int(valid.sum())} proposals kept; '
+          f'{sorted(times)[1]:.2f} ms wall (median of 3), '
+          f'{peak:.2f} GiB peak memory over the features')
+    t0 = time.time()
+    with torch.no_grad():
+        shared = [model.rpn_head.shared_single(f) for f in feats]
+        seen = (shared, shapes, cfg) + model.rpn_head.get_proposals(
+            None, shapes, cfg, shared)
+    faults = bench.selection_faults(
+        model.rpn_head, copy.deepcopy(model.rpn_head).cpu(), seen)
+    ok = faults == 0 and bool(seen[4].all())
+    print(f'C4 RPN selection at nms_pre {cfg["nms_pre"]}: the card\'s '
+          f'{int(seen[4].sum())} proposals against the plain selection from '
+          f'its candidates on the CPU: {faults} differ (none may; '
+          f'{time.time() - t0:.1f} s) {"ok" if ok else "FAIL"}')
+    return ok
+
+
+def c4_mask(requests, train_dtypes):
+    """Mask R-CNN C4 (``mask_rcnn_r50_caffe_c4_1x_coco.py``): (a) served
+    (no A; B twice at 14 x 14 over 1024 channels: the proposals, then the
+    detection slots, each through the shared ``layer4``) and against the
+    CPU, mask logits included; (b) kernel B on both launches' arguments;
+    (c) trained (B and C twice a step: the sampled RoIs, then the mask
+    RoIs), kernel C at 1024 channels on both of the first step's
+    cotangents, the RPN stage's time and memory and its selection against
+    the CPU's at ``nms_pre`` 12000, and a step against the
+    CPU on fewer RoIs (:func:`fewer_rois`). Returns each check's result,
+    the serving and training runs' launches, and the rows' additions for
+    B and C."""
+    cfg = bench.C4_MASK_CFG
+    results, rows = {}, [{}, {}, {}]
+    with phase('c4_mask: serve'):
+        model = build_detector(cfg, CLS_SCALE['c4_mask'])
+        launches_serve, results['serve'], args = serve(model, requests)
+    with phase('c4_mask: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase('c4_mask: kernel B at 14 x 14, 1024 channels'):
+        ok_p, rows[1] = check_roi_align_c4(args, 0, '_c4', 'C4 proposals')
+        ok_m, more = check_roi_align_c4(args, 1, '_c4_mask',
+                                        'C4 detection slots')
+        rows[1].update(more)
+        results['kernel_b'] = ok_p and ok_m
+    del args
+    with phase('c4_mask: train'):
+        model, start, launches_train, step_args, results['train'] = train(
+            cfg, train_dtypes, ('roi_head.shared_head.layer4.2.conv3',
+                                'roi_head.mask_head.', 'fc_cls'))
+    with phase('c4_mask: kernel C at 1024 channels'):
+        ok = True
+        for j, name in ((0, '_c4'), (1, '_c4_mask')):
+            a = _forward_launch(step_args, j)
+            good, row = check_roi_align_bwd_step(
+                a, key=f'{name}_r{a[1].shape[0]}', plain=True)
+            ok = ok and good
+            rows[2].update(row)
+        results['kernel_c'] = ok
+    del step_args
+    with phase('c4_mask: RPN stage'):
+        results['rpn'] = rpn_reading(model, bench.synthetic_batch(2))
+    with phase('c4_mask: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, fewer_rois(cfg), readings=False)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, rows
+
+
+def c4(requests):
+    """Faster R-CNN C4 (``faster_rcnn_r50_caffe_c4_1x_coco.py``): served (no
+    A, B once at 14 x 14 over 1024 channels) and against the CPU. Returns
+    each check's result and the serving run's launches."""
+    cfg = bench.C4_CFG
+    results = {}
+    with phase('c4: serve'):
+        model = build_detector(cfg, CLS_SCALE['c4'])
+        launches_serve, results['serve'], _ = serve(model, requests)
+    with phase('c4: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve
+
+
+def cascade_mask(requests, train_dtypes):
+    """Cascade Mask R-CNN R50 + FPN (``cascade_mask_rcnn_r50_fpn_1x_coco.
+    py``): (a) served (no A; B three times, a stage's; boxes only) and
+    against the CPU; (b) kernel B on each stage's served RoIs; (c) trained
+    (B and C six times a step: a stage's boxes at 7 x 7, then its mask
+    RoIs at 14 x 14; every stage's mask head moves), kernel B on each
+    stage's mask RoIs of the first step and kernel C on each of its six
+    cotangents, keyed by stage, and a step against the CPU. Returns each
+    check's result, the serving and training runs' launches, and the rows'
+    additions for B and C."""
+    cfg = bench.CASCADE_MASK_CFG
+    results, rows = {}, [{}, {}, {}]
+    with phase('cascade_mask: serve'):
+        model = build_detector(cfg, CLS_SCALE['cascade_mask'])
+        launches_serve, results['serve'], args = serve(model, requests)
+    with phase('cascade_mask: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase("cascade_mask: kernel B on each stage's RoIs"):
+        results['kernel_b'], rows[1] = check_roi_align_stages(
+            args, 3, '_cascade_mask', 'cascade mask')
+    del args
+    with phase('cascade_mask: train'):
+        model, start, launches_train, step_args, results['train'] = train(
+            cfg, train_dtypes, tuple(f'roi_head.mask_head.{i}.'
+                                     for i in range(3)))
+    with phase("cascade_mask: kernels B and C on each stage's mask RoIs"):
+        # forward order: stage i's boxes (B launch 2i), then its mask RoIs
+        # (2i + 1)
+        ok = sorted(map(str, step_args['forward_index'])) == sorted(
+            str([j]) for j in range(6))
+        print(f"kernel C launches by forward B launch "
+              f"{step_args['forward_index']} {'ok' if ok else 'FAIL'}")
+        for i in range(3):
+            feats, rois, lvls = step_args['forward'][2 * i + 1]
+            for dt in (torch.bfloat16, torch.float32):
+                ok = _roi_align_bit_for_bit(
+                    feats, rois, lvls, dt, f'cascade mask stage {i} B=2',
+                    f'_cascade_mask_s{i}_mask_r{rois.shape[0]}', rows[1],
+                    (14, 14)) and ok
+            for j, kind in ((2 * i, 'box'), (2 * i + 1, 'mask')):
+                a = _forward_launch(step_args, j)
+                good, row = check_roi_align_bwd_step(
+                    a, key=f'_cascade_mask_s{i}_{kind}_r{a[1].shape[0]}',
+                    plain=j == 1)
+                ok = ok and good
+                rows[2].update(row)
+        results['kernels'] = ok
+    del step_args
+    with phase('cascade_mask: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, rows
+
+
+def mask_v1(requests):
+    """Mask R-CNN R50 caffe + FPN as mmdet 1.x trained it
+    (``mask_rcnn_r50_caffe_fpn_poly_1x_coco_v1.py``: the legacy +1 coder in
+    the RPN and the box head, RoIAlign with ``sample_num=2``): served (no
+    A, B twice) and against the CPU. Returns each check's result and the
+    serving run's launches."""
+    cfg = bench.MASK_V1_CFG
+    results = {}
+    with phase('v1: serve'):
+        model = build_detector(cfg, CLS_SCALE['v1'])
+        print(f'coders: RPN {type(model.rpn_head.bbox_coder).__name__}, '
+              f'box head {type(model.roi_head.bbox_head.bbox_coder).__name__}'
+              f'; RoIAlign sample_num '
+              f'{model.roi_head.bbox_roi_extractor.sample_num}')
+        launches_serve, results['serve'], _ = serve(model, requests)
+    with phase('v1: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve
+
+
 PHASE_SECONDS = {}
 
 
@@ -2968,6 +3364,17 @@ def main():
     ohem_runs = ohem([(1, bf)] * 2 + [(2, bf)], [bf, bf, f32])
     rows[1].update(ohem_runs[3])
     bfp = faster_bfp([(1, bf)] * 2 + [(2, bf)])
+    caffe_runs = caffe([(1, bf), (2, bf), (1, f32)], [bf, f32], name_limit)
+    x101 = libra_x101([(1, bf), (2, bf), (1, f32)], [bf, f32])
+    rows[0].update(x101[3])
+    c4_mask_runs = c4_mask([(1, bf), (2, bf), (1, f32)], [bf, f32])
+    for row, more in zip(rows, c4_mask_runs[3]):
+        row.update(more)
+    c4_runs = c4([(1, bf), (2, bf), (1, f32)])
+    cmask = cascade_mask([(1, bf), (2, bf), (1, f32)], [bf, f32])
+    for row, more in zip(rows, cmask[3]):
+        row.update(more)
+    v1 = mask_v1([(1, bf)])
     for row in rows:
         row['launches'] = launches[row['name']]
         row['launches_serve'] = launches_serve.get(row['name'], 0)
@@ -2988,11 +3395,15 @@ def main():
             row[f'launches_{name}_eval'] = evaluated[row['name']]
         for name, runs in (('libra', libra_r50), ('libra101', libra_r101),
                            ('libra_retina', libra_ret), ('ohem', ohem_runs),
-                           ('bfp', bfp)):
+                           ('bfp', bfp), ('caffe', caffe_runs),
+                           ('libra_x101', x101), ('c4_mask', c4_mask_runs),
+                           ('c4', c4_runs), ('cascade_mask', cmask),
+                           ('v1', v1)):
             row[f'launches_{name}_serve'] = runs[1].get(row['name'], 0)
             if len(runs) > 2:
                 row[f'launches_{name}_train'] = runs[2][row['name']]
         row['launches_libra_eval'] = libra_r50[4][row['name']]
+        row['launches_caffe_eval'] = caffe_runs[3][row['name']]
     failed = [k for k, v in (('kernels', ok_kernels), ('serve', ok_serve),
                              ('reference', ok_ref), ('train', ok_train),
                              ('kernel C on a step', ok_step_rois),
@@ -3010,7 +3421,13 @@ def main():
                                              ('libra101', libra_r101),
                                              ('libra_retina', libra_ret),
                                              ('ohem', ohem_runs),
-                                             ('bfp', bfp))
+                                             ('bfp', bfp),
+                                             ('caffe', caffe_runs),
+                                             ('libra_x101', x101),
+                                             ('c4_mask', c4_mask_runs),
+                                             ('c4', c4_runs),
+                                             ('cascade_mask', cmask),
+                                             ('v1', v1))
                for k, v in r[0].items() if not v]
     print(f'phases: {len(PHASE_SECONDS)}, total {time.time() - t0:.1f} s')
     if failed:

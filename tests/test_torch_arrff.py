@@ -20,6 +20,7 @@ import test_torch_detector as det
 import torch
 from test_torch_train import (B, G, H, P, SHAPES, W, _ground_truth,
                               _patch_jax, _patch_torch, stop_roi_gradient)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu import Config as JConfig
 from arfe_tpu.convert import state_dict_to_params

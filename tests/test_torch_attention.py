@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.ops.non_local import NonLocal2D as JNonLocal2D
 from arfe_tpu.ops.pallas_attention import fused_softmax_attention as j_attn

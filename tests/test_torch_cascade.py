@@ -25,6 +25,7 @@ from test_torch_arrff import FAST_COMPILE
 from test_torch_eval import _write_config
 from test_torch_train import (B, G, H, SHAPES, W, _ground_truth, _patch_jax,
                               _patch_torch, _proposals, _RoIsWithoutGradient)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.apis.test import single_device_test as j_single_device_test
 from arfe_tpu.config import Config as JConfig

@@ -15,6 +15,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.config import Config as JConfig
 from arfe_tpu.data.builder import collate_detection

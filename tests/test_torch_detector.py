@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from __graft_entry__ import FLAGSHIP_CFG, _build_flagship
 from arfe_tpu.convert import state_dict_to_params

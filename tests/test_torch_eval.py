@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 from test_torch_arrff import CONFIGS, tiny
 from test_torch_detector import _iou, _perturb
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.apis.test import single_device_test as j_single_device_test
 from arfe_tpu.config import Config as JConfig

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, their
 gradients through the autograd Functions, the tiny flagship's inference
 and training step on the card against the CPU (and those of Mask R-CNN,
-Cascade R-CNN and RetinaNet), and the training run's loop and checkpoints
-on the card.
+Cascade R-CNN, RetinaNet and Mask R-CNN C4), kernel C at its 1024-channel
+ceiling, and the training run's loop and checkpoints on the card.
 
 Marked ``gpu``; every test skips where there is no CUDA device. This file
 imports no JAX, so it also runs where JAX is not installed:
@@ -745,3 +745,50 @@ def test_retinanet_on_card_matches_cpu(cuda):
         (fa.launches, ra.launches, ra.bwd_launches), counts)] == [1, 0, 0]
     assert r['ok'], r
     assert sorted(r['loss_err']) == ['loss', 'loss_bbox', 'loss_cls']
+
+
+def test_roi_align_backward_kernel_rejects_channels_past_its_ceiling(cuda):
+    """Kernel C's 256 threads take 4 channels each: 1024 channels is its
+    ceiling (the C4 layout's), 1028 raise on a CUDA tensor, with no
+    fallback to the plain version."""
+    rois = _rois(torch.Generator(device=cuda).manual_seed(0), cuda)
+    lvls = torch.zeros(rois.shape[0], dtype=torch.int32, device=cuda)
+    shapes = [(2, 200 // 16, 336 // 16, 1028)]
+    g = torch.randn((rois.shape[0], 14, 14, 1028), device=cuda)
+    before = ra.bwd_launches
+    with pytest.raises(ValueError, match='up to 1024'):
+        ra.roi_align_backward_cuda(g, rois, lvls, shapes, (14, 14), (16,))
+    assert ra.bwd_launches == before
+    out = ra.roi_align_backward_cuda(g[..., :1024].contiguous(), rois, lvls,
+                                     [s[:3] + (1024,) for s in shapes],
+                                     (14, 14), (16,))
+    assert ra.bwd_launches == before + 1 and out[0].shape[-1] == 1024
+
+
+def test_c4_train_step_on_card_matches_cpu(cuda):
+    """The tiny Mask R-CNN C4 (``tests/test_c4_models.py``'s cut: base 8,
+    128-channel features, the shared layer4 to 256) on the card and on the
+    CPU: one f32 step (B and C twice, at 14 x 14 on one stride-16 level:
+    the sampled RoIs, then the mask RoIs) under ``bench.compare_with_cpu``'s
+    tolerances."""
+    cfg = Config.fromfile(bench.C4_MASK_CFG)
+    mc = cfg.model
+    mc.backbone.base_channels = 8
+    mc.rpn_head.update(in_channels=128, feat_channels=128)
+    mc.roi_head.bbox_roi_extractor.out_channels = 128
+    mc.roi_head.shared_head.base_channels = 8
+    mc.roi_head.bbox_head.in_channels = 256
+    mc.roi_head.mask_head.in_channels = 256
+    cfg.train_cfg.rpn_proposal.update(nms_pre=400, nms_post=128, max_num=128)
+    cfg.train_cfg.rcnn.sampler.num = 64
+    cpu = init_detector(cfg, device='cpu', train=True)
+    gpu = init_detector(cfg, device=cuda, train=True)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = bench.synthetic_batch(2, 192, 256, (192., 250.), torch.float32,
+                                  seed=3, device='cpu', masks=True)
+    counts = (fa.launches, ra.launches, ra.bwd_launches)
+    r = bench.compare_with_cpu(gpu, cpu, batch)
+    assert [n - c for n, c in zip(
+        (fa.launches, ra.launches, ra.bwd_launches), counts)] == [0, 2, 2]
+    assert 'loss_mask' in r['loss_err']
+    assert r['ok'], r

@@ -1,7 +1,7 @@
 """The port stands alone: importing any of its modules (the data and
 evaluation path, the training run, the masks of Mask R-CNN, Cascade R-CNN's
-and RetinaNet's heads, and the ``test``, ``train`` and ``e2e_smoke`` CLIs
-among them), or ``chip_smoke``,
+and RetinaNet's heads, ResNeXt, the C4 shared head, and the ``test``,
+``train`` and ``e2e_smoke`` CLIs among them), or ``chip_smoke``,
 loads no JAX, no optax and nothing of the JAX package; its entry point
 defaults to the card."""
 import os
@@ -10,6 +10,7 @@ import sys
 
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,7 +54,10 @@ missing = [m for m in ('arfe_tpu_torch.train.optimizer',
                        'arfe_tpu_torch.models.detectors.single_stage',
                        'arfe_tpu_torch.models.losses.focal_loss',
                        'arfe_tpu_torch.models.necks.fpn',
-                       'arfe_tpu_torch.tools.step_conditioning')
+                       'arfe_tpu_torch.tools.step_conditioning',
+                       'arfe_tpu_torch.models.backbones.resnext',
+                       'arfe_tpu_torch.models.roi_heads.shared_heads.'
+                       'res_layer')
            if m not in sys.modules]
 print('modules:', len(sys.modules), 'forbidden:', bad, 'missing:', missing)
 sys.exit(1 if bad or missing else 0)

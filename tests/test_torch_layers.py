@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu import layers as jl
 from arfe_tpu_torch import layers as tl

@@ -21,6 +21,7 @@ from test_torch_arrff import FAST_COMPILE
 from test_torch_cascade import detections_match, perturb, tiny_trunk
 from test_torch_train import (B, G, H, SHAPES, W, _ground_truth, _proposals,
                               stop_roi_gradient)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.config import Config as JConfig
 from arfe_tpu.convert import state_dict_to_params

@@ -31,6 +31,7 @@ from test_torch_eval import _write_config
 from test_torch_train import (B, G, H, SHAPES, W, _ground_truth, _patch_jax,
                               _patch_torch, _RoIsWithoutGradient,
                               stop_roi_gradient)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.apis.test import encode_mask_results as j_encode_mask_results
 from arfe_tpu.apis.test import single_device_test as j_single_device_test

@@ -4,6 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.core.post.bbox_nms import multiclass_nms as j_multiclass_nms
 from arfe_tpu.ops.nms import batched_nms as j_batched_nms

@@ -8,6 +8,7 @@ import optax
 import pytest
 import torch
 from torch import nn
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.train import build_lr_schedule as j_build_lr_schedule
 from arfe_tpu.train import build_optimizer as j_build_optimizer

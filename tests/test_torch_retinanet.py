@@ -27,6 +27,7 @@ from test_torch_cascade import (SEED, SIZES, STATS, TEST_SCALE, _serve_jax,
                                 tiny_trunk)
 from test_torch_eval import _write_config
 from test_torch_train import B, H, SHAPES, W, _ground_truth
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.apis.test import single_device_test as j_single_device_test
 from arfe_tpu.config import Config as JConfig

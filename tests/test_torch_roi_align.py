@@ -10,6 +10,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 from test_torch_detector import FAST_COMPILE
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.models.roi_heads.roi_extractors.single_level import \
     SingleRoIExtractor as JExtractor

@@ -11,6 +11,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 from test_torch_detector import FAST_COMPILE
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.ops import map_roi_levels as j_map_roi_levels
 from arfe_tpu.ops import roi_align_pyramid as j_roi_align_pyramid

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_detector import FAST_COMPILE, _perturb, port_params, tiny_cfg
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from __graft_entry__ import _build_flagship
 from arfe_tpu.core.bbox.coder import bbox2delta as j_bbox2delta

@@ -22,6 +22,7 @@ import pytest
 import torch
 from test_torch_optimizer import LR_CONFIG, SGD, _flat, _Net, _nested
 from test_torch_train import _patch_jax, _patch_torch, stop_roi_gradient
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu import Config as JConfig
 from arfe_tpu.apis.inference import init_detector as j_init_detector
