@@ -163,6 +163,10 @@ def train_detector(model, dataset, cfg, validate=False, logger=None,
                                                                   1)
     history = []
     global_it = start_epoch * iters_per_epoch
+    # FSAF's count of the gts each level took, added up over the run on the
+    # device and written to gt_assign.txt at each log iteration, as the
+    # JAX package's loop does (the reference writes it inside the loss)
+    gt_assign_counts = None
     for epoch in range(start_epoch, total_epochs):
         t_epoch = time.time()
         loader.set_epoch(epoch)
@@ -175,6 +179,10 @@ def train_detector(model, dataset, cfg, validate=False, logger=None,
             log_vars = step(batch, iteration_generator(seed, global_it,
                                                        device))
             global_it += 1
+            if 'gt_assign_hist' in log_vars:
+                hist = log_vars.pop('gt_assign_hist')
+                gt_assign_counts = hist if gt_assign_counts is None \
+                    else gt_assign_counts + hist
             if (it + 1) % log_interval == 0:
                 scalars = {k: float(v) for k, v in log_vars.items()}
                 # the LR of the next iteration, as the JAX package logs it
@@ -185,6 +193,11 @@ def train_detector(model, dataset, cfg, validate=False, logger=None,
                 _append_json_log(work_dir, entry)
                 msg = ' '.join(f'{k}: {v:.4f}' for k, v in scalars.items())
                 log(f'Epoch [{epoch + 1}][{it + 1}/{iters_per_epoch}] {msg}')
+                if gt_assign_counts is not None:
+                    with open(os.path.join(work_dir, 'gt_assign.txt'),
+                              'w') as f:
+                        f.write(' '.join(str(int(c)) for c in
+                                         gt_assign_counts.tolist()) + '\n')
         log(f'Epoch {epoch + 1} done in {time.time() - t_epoch:.1f}s')
         if val_loader is not None \
                 and (epoch + 1) % eval_cfg.get('interval', 1) == 0:

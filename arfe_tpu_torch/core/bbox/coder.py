@@ -1,6 +1,6 @@
-"""Delta (dx, dy, dw, dh) box coders (counterpart of
-``arfe_tpu/core/bbox/coder.py:16-100,154-230``), mmdet 1.x's legacy one
-among them."""
+"""Box coders (counterpart of ``arfe_tpu/core/bbox/coder.py:16-230``): the
+delta (dx, dy, dw, dh) coders, mmdet 1.x's legacy one among them, and
+FSAF's top / bottom / left / right coder."""
 from __future__ import annotations
 
 import numpy as np
@@ -160,3 +160,44 @@ class LegacyDeltaXYWHBBoxCoder(DeltaXYWHBBoxCoder):
                wh_ratio_clip=16 / 1000):
         return legacy_delta2bbox(bboxes, pred_bboxes, self.means, self.stds,
                                  max_shape, wh_ratio_clip)
+
+
+@BBOX_CODERS.register_module()
+class TBLRBBoxCoder:
+    """Distances from a box's centre to the target's top, bottom, left and
+    right sides, over the box's height or width times ``normalizer``
+    (``arfe_tpu/core/bbox/coder.py:115-153``; FSAF's)."""
+
+    def __init__(self, normalizer=4.0):
+        self.normalizer = normalizer
+
+    @staticmethod
+    def _centre_and_size(bboxes):
+        px = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        py = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        w = bboxes[..., 2] - bboxes[..., 0]
+        h = bboxes[..., 3] - bboxes[..., 1]
+        return px, py, torch.stack([h, h, w, w], dim=-1)
+
+    def encode(self, bboxes, gt_bboxes):
+        px, py, hhww = self._centre_and_size(bboxes)
+        loc = torch.stack([py - gt_bboxes[..., 1], gt_bboxes[..., 3] - py,
+                           px - gt_bboxes[..., 0], gt_bboxes[..., 2] - px],
+                          dim=-1)
+        return loc / (torch.clamp(hhww, min=1e-6) * self.normalizer)
+
+    def decode(self, bboxes, pred_bboxes, max_shape=None):
+        """``max_shape``: optional (..., 2) tensor of (h, w) to clamp to,
+        broadcast over the boxes' dimension."""
+        px, py, hhww = self._centre_and_size(bboxes)
+        loc = pred_bboxes * self.normalizer * hhww
+        t, b, l, r = loc.unbind(-1)
+        x1, y1, x2, y2 = px - l, py - t, px + r, py + b
+        if max_shape is not None:
+            mh, mw = max_shape[..., 0, None], max_shape[..., 1, None]
+            zero = torch.zeros((), dtype=x1.dtype, device=x1.device)
+            x1 = torch.minimum(torch.maximum(x1, zero), mw)
+            y1 = torch.minimum(torch.maximum(y1, zero), mh)
+            x2 = torch.minimum(torch.maximum(x2, zero), mw)
+            y2 = torch.minimum(torch.maximum(y2, zero), mh)
+        return torch.stack([x1, y1, x2, y2], dim=-1)

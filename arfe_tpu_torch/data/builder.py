@@ -26,12 +26,20 @@ MASK_CROP_SIZE = 112
 
 
 def build_dataset(cfg, default_args=None):
-    """(ref: datasets/builder.py:49-66). The dataset wrappers (concat,
-    repeat, class-balanced) are not ported yet (ROADMAP §1)."""
-    if isinstance(cfg, (list, tuple)) or cfg['type'] in (
-            'ConcatDataset', 'RepeatDataset', 'ClassBalancedDataset'):
-        raise NotImplementedError('build_dataset: dataset wrappers are not '
-                                  'ported yet')
+    """(ref: datasets/builder.py:49-66). A list of configs is their
+    ``ConcatDataset``; ``RepeatDataset`` and ``ClassBalancedDataset`` wrap
+    the dataset of their ``dataset`` config."""
+    from .dataset_wrappers import (ClassBalancedDataset, ConcatDataset,
+                                   RepeatDataset)
+    if isinstance(cfg, (list, tuple)):
+        return ConcatDataset([build_dataset(c, default_args) for c in cfg])
+    if cfg['type'] == 'RepeatDataset':
+        return RepeatDataset(build_dataset(cfg['dataset'], default_args),
+                             cfg['times'])
+    if cfg['type'] == 'ClassBalancedDataset':
+        return ClassBalancedDataset(
+            build_dataset(cfg['dataset'], default_args),
+            cfg['oversample_thr'])
     return build_from_cfg(cfg, DATASETS, default_args)
 
 

@@ -1,8 +1,9 @@
-"""COCO dataset (counterpart of ``arfe_tpu/data/coco.py``; ref:
-mmdet/datasets/coco.py:19-430), on the port's own COCO API and
-``COCOEvaluator``. The ``bbox`` and ``segm`` metrics are ported (masks as
-uncompressed RLE: pycocotools is not installed); ``proposal`` waits for
-``recall``.
+"""COCO and VisDrone datasets (counterpart of ``arfe_tpu/data/coco.py``;
+ref: mmdet/datasets/coco.py:19-430), on the port's own COCO API and
+``COCOEvaluator``. The ``bbox`` and ``segm`` metrics (masks as uncompressed
+RLE: pycocotools is not installed), and the proposals' average recall
+(``proposal`` and ``proposal_fast``, the same computation here as in the
+JAX package).
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import json
 
 import numpy as np
 
-from ..core.evaluation import COCOEvaluator
+from ..core.evaluation import COCOEvaluator, eval_recalls
 from ..core.mask.rle import mask_to_rle
 from ..registry import DATASETS
 from .coco_api import COCO
@@ -157,17 +158,19 @@ class CocoDataset(CustomDataset):
             json.dump(json_results, f)
         return {'bbox': path}
 
-    def evaluate(self, results, metric='bbox', iou_thrs=None):
+    def evaluate(self, results, metric='bbox', iou_thrs=None,
+                 proposal_nums=(100, 300, 1000)):
         """COCO protocol evaluation (ref: coco.py:320-430): for each of
         ``bbox`` and ``segm`` asked for, its six stats ``{m}_mAP``,
-        ``{m}_AP50`` ... ``{m}_APl``. ``segm`` needs a mask model's
-        ``(bbox, segm)`` results."""
+        ``{m}_AP50`` ... ``{m}_APl``; ``segm`` needs a mask model's
+        ``(bbox, segm)`` results. ``proposal`` or ``proposal_fast`` take
+        each image's proposals ((n, 5) with scores, or a list of such
+        arrays) and give ``AR@{n}`` for each of ``proposal_nums``: the
+        recall averaged over the IoU thresholds 0.5, 0.55 ... 0.95
+        (``arfe_tpu/data/coco.py:162-207``)."""
         metrics = metric if isinstance(metric, list) else [metric]
         for m in metrics:
-            if m in ('proposal', 'proposal_fast'):
-                raise NotImplementedError(
-                    f'CocoDataset.evaluate: {m} waits for recall')
-            if m not in ('bbox', 'segm'):
+            if m not in ('bbox', 'segm', 'proposal', 'proposal_fast'):
                 raise KeyError(f'metric {m} is not supported')
         out = {}
         for m in ('bbox', 'segm'):
@@ -182,4 +185,21 @@ class CocoDataset(CustomDataset):
             stats = ev.evaluate(coco_dt)['stats']
             out.update({(f'{m}_mAP' if k == 'AP' else f'{m}_{k}'): stats[k]
                         for k in STATS})
+        if 'proposal' in metrics or 'proposal_fast' in metrics:
+            gts = [self.get_ann_info(i)['bboxes'] for i in range(len(self))]
+            props = [np.vstack(r) if isinstance(r, list) else r
+                     for r in results]
+            ar = eval_recalls(gts, props, list(proposal_nums),
+                              np.arange(0.5, 0.96, 0.05)).mean(axis=1)
+            out.update({f'AR@{n}': float(a)
+                        for n, a in zip(proposal_nums, ar)})
         return out
+
+
+@DATASETS.register_module()
+class VisdroneDataset(CocoDataset):
+    """VisDrone-DET in COCO form: 12 classes, the first of them the ignored
+    regions (ref: mmdet/datasets/visdrone.py:5-11)."""
+    CLASSES = ('ignored-regions', 'pedestrian', 'people', 'bicycle', 'car',
+               'van', 'truck', 'tricycle', 'awning-tricycle', 'bus', 'motor',
+               'others')

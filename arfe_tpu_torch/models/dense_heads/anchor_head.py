@@ -3,8 +3,9 @@
 coder, anchor generator, losses and classification channels from the config;
 with a ``train_cfg`` the assigner, the sampler (a ``PseudoSampler`` for the
 losses that need no sampling, such as the focal loss) and the anchor targets
-and losses of the training step; and the single-stage detections
-(``get_bboxes``), all batched over the images.
+and losses of the training step (with ``reg_decoded_bbox`` the box loss
+compares the decoded predictions with the gt boxes); and the single-stage
+detections (``get_bboxes``), all batched over the images.
 
 Candidates are in the reference's (position, anchor) order: a level's
 (B, A * C, H, W) output read as (B, H * W * A, C). The RPN reads its 1x1
@@ -51,7 +52,8 @@ def anchor_inside_flags(flat_anchors, valid_flags, img_shapes,
 
 class AnchorHead(nn.Module):
     def __init__(self, num_classes, in_channels, feat_channels=256,
-                 anchor_generator=None, bbox_coder=None, background_label=None,
+                 anchor_generator=None, bbox_coder=None,
+                 reg_decoded_bbox=False, background_label=None,
                  loss_cls=None, loss_bbox=None, train_cfg=None,
                  test_cfg=None):
         super().__init__()
@@ -68,6 +70,9 @@ class AnchorHead(nn.Module):
         # the background label is num_classes (mmdet v2.0)
         self.background_label = (num_classes if background_label is None
                                  else background_label)
+        # the box loss compares decoded boxes with the gt boxes (the IoU
+        # losses), not the coder's deltas
+        self.reg_decoded_bbox = reg_decoded_bbox
         self.loss_cls = build_from_cfg(loss_cls, LOSSES)
         self.loss_bbox = build_from_cfg(loss_bbox, LOSSES)
         self.bbox_coder = build_from_cfg(
@@ -134,7 +139,8 @@ class AnchorHead(nn.Module):
         safe_gt = torch.clamp(assigned - 1, 0, gt_bboxes.shape[1] - 1)
         matched_gt = torch.gather(gt_bboxes.float(), 1,
                                   safe_gt[..., None].expand(-1, -1, 4))
-        all_targets = self.bbox_coder.encode(anchors, matched_gt)
+        all_targets = matched_gt if self.reg_decoded_bbox \
+            else self.bbox_coder.encode(anchors, matched_gt)
         if gt_labels is None:
             all_labels = torch.ones_like(assigned)   # the RPN's foreground
         else:
@@ -181,6 +187,8 @@ class AnchorHead(nn.Module):
         else:
             loss_cls = self.loss_cls(cls_flat, labels, label_weights,
                                      avg_factor=num_total_samples)
+        if self.reg_decoded_bbox:
+            box_flat = self.bbox_coder.decode(anchors, box_flat)
         loss_bbox = self.loss_bbox(box_flat.reshape(-1, 4),
                                    bbox_targets.reshape(-1, 4),
                                    bbox_weights.reshape(-1, 4),

@@ -1,6 +1,7 @@
 """Single-stage detectors: inference and training losses (counterpart of
-``arfe_tpu/models/detectors/single_stage.py:16-77,151-153``): backbone,
-necks and a dense head that detects from every level's anchors. RetinaNet.
+``arfe_tpu/models/detectors/single_stage.py:16-77,151-163``): backbone,
+necks and a dense head that detects from every level's anchors. RetinaNet
+and FSAF.
 
 The JAX package's channel-major head path (``ARFE_TPU_CM_FINALS``, with its
 optimisation barrier) is a TPU layout workaround and is not ported, nor is
@@ -87,3 +88,8 @@ class SingleStageDetector(nn.Module):
 @DETECTORS.register_module()
 class RetinaNet(SingleStageDetector):
     """ref: mmdet/models/detectors/retinanet.py"""
+
+
+@DETECTORS.register_module()
+class FSAF(SingleStageDetector):
+    """ref: mmdet/models/detectors/fsaf.py"""

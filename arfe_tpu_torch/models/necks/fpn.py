@@ -1,5 +1,6 @@
 """Feature Pyramid Network (counterpart of ``arfe_tpu/models/necks/fpn.py:
-18-142``).
+18-142``), with the JAX package's hooks around its top-down pass for the
+experimental FPNs.
 
 1x1 laterals over the inputs ``start_level`` to ``end_level``, nearest
 top-down sum, 3x3 outputs; extra levels as stride-2 subsamples of the last
@@ -34,6 +35,7 @@ class FPN(nn.Module):
             raise NotImplementedError('FPN: norm_cfg, act_cfg and a '
                                       'non-nearest upsample are not ported')
         self.num_ins = len(in_channels)
+        self.out_channels = out_channels
         self.num_outs = num_outs
         if end_level == -1:
             self.backbone_end_level = self.num_ins
@@ -68,15 +70,34 @@ class FPN(nn.Module):
                     c, out_channels, 3, stride=2, padding=1, act_cfg=None,
                     weight_init='xavier'))
 
+    # hooks of the experimental FPNs (``necks/experimental_fpns.py``), as
+    # the JAX package's: each takes and returns the laterals; a subclass's
+    # own modules are attributes (the JAX ``extra_module_groups``)
+
+    def _pre_topdown(self, laterals, inputs):
+        return laterals
+
+    def _topdown(self, laterals, inputs):
+        for i in range(len(laterals) - 1, 0, -1):
+            laterals[i - 1] = laterals[i - 1] + resize_nearest(
+                laterals[i], laterals[i - 1].shape[2:])
+        return laterals
+
+    def _post_topdown(self, laterals, inputs):
+        return laterals
+
     def forward(self, inputs):
         if len(inputs) != self.num_ins:
             raise ValueError(f'FPN: {len(inputs)} inputs, expected '
                              f'{self.num_ins}')
         laterals = [m(inputs[i + self.start_level])
                     for i, m in enumerate(self.lateral_convs)]
-        for i in range(len(laterals) - 1, 0, -1):
-            laterals[i - 1] = laterals[i - 1] + resize_nearest(
-                laterals[i], laterals[i - 1].shape[2:])
+        laterals = self._pre_topdown(laterals, inputs)
+        laterals = self._topdown(laterals, inputs)
+        laterals = self._post_topdown(laterals, inputs)
+        return self._build_outputs(laterals, inputs)
+
+    def _build_outputs(self, laterals, inputs):
         used = len(laterals)
         outs = [self.fpn_convs[i](x) for i, x in enumerate(laterals)]
         if not self.add_extra_convs:

@@ -29,9 +29,13 @@ class BBoxHead(nn.Module):
 
     def __init__(self, with_avg_pool=False, with_cls=True, with_reg=True,
                  roi_feat_size=7, in_channels=256, num_classes=80,
-                 bbox_coder=None, reg_class_agnostic=False, loss_cls=None,
-                 loss_bbox=None):
+                 bbox_coder=None, reg_class_agnostic=False,
+                 reg_decoded_bbox=False, loss_cls=None, loss_bbox=None):
         super().__init__()
+        # kept and never read, as the JAX package keeps it: the box loss
+        # (an IoU loss too) compares the coder's deltas, where mmdet's would
+        # decode them first (ROADMAP.md §3)
+        self.reg_decoded_bbox = reg_decoded_bbox
         self.with_avg_pool = with_avg_pool
         self.with_cls = with_cls
         self.with_reg = with_reg

@@ -16,7 +16,9 @@ R-CNN with OHEM or BFP ``configs/faster_rcnn/faster_rcnn_r50_fpn_{ohem,bfp}_
 that ``train.bench`` names: ``CAFFE_CFG``, ``LIBRA_X101_CFG``,
 ``C4_MASK_CFG``, ``C4_CFG``, ``CASCADE_MASK_CFG``, ``MASK_V1_CFG``; a C4
 detector's "backbone + necks" is its trunk to stage 3, its RoI head holds
-the shared ``layer4``) at 800x1344 in bf16
+the shared ``layer4``; and ``RPN_CFG``, ``RPN_C4_CFG``, ``FSAF_CFG``,
+``GIOU_CFG``, ``FPNBU_CFG``, ``RELATION_CFG``, ``CBAM_CFG``, ``ATT_CFG``,
+an RPN's request ending with its proposals) at 800x1344 in bf16
 with seeded random weights (as ``chip_smoke.py`` does) and prints, over five
 requests after two warm-up requests:
 
@@ -25,7 +27,8 @@ requests after two warm-up requests:
   dense head's convs, its decode and NMS), each closed by a device
   synchronisation;
 - the device's busy time per request and its idle share, from
-  ``torch.profiler`` (the union of the kernels' intervals);
+  ``torch.profiler`` (the union of the kernels' intervals), and the peak
+  device memory of the requests after the warm-up;
 - the kernels that take the most device time.
 """
 from __future__ import annotations
@@ -64,7 +67,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('profile_serve: no CUDA device')
     from arfe_tpu_torch.apis import init_detector
-    from arfe_tpu_torch.models.detectors import TwoStageDetector
+    from arfe_tpu_torch.models.detectors import RPN, TwoStageDetector
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -78,6 +81,7 @@ def main():
     scales = torch.ones((b, 4), device='cuda')
 
     two_stage = isinstance(model, TwoStageDetector)
+    rpn_only = isinstance(model, RPN)
 
     def staged():
         """One request, stage by stage; returns each stage's wall ms."""
@@ -91,10 +95,11 @@ def main():
         times = []
         with torch.inference_mode():
             feats = timed(model.extract_feat, img)
-            if two_stage:
+            if two_stage or rpn_only:
                 props = timed(model.rpn_head.get_proposals, feats, shapes)
-                timed(model.roi_head.simple_test, feats, *props, shapes,
-                      scales, rescale=True)
+                if two_stage:
+                    timed(model.roi_head.simple_test, feats, *props, shapes,
+                          scales, rescale=True)
             else:
                 outs = timed(model.dense_head, feats)
                 timed(model.dense_head.get_bboxes, *outs, shapes, scales,
@@ -103,6 +108,7 @@ def main():
 
     for _ in range(2):
         staged()
+    torch.cuda.reset_peak_memory_stats()
     stage_ms = [staged() for _ in range(ITERS)]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -118,13 +124,15 @@ def main():
     busy = _busy_us(kernels)
     n = ITERS
     names = ('backbone + necks', 'rpn proposals', 'roi head') if two_stage \
+        else ('backbone + necks', 'rpn proposals') if rpn_only \
         else ('backbone + necks', 'dense head', 'decode + nms')
     for i, name in enumerate(names):
         ms = sorted(s[i] for s in stage_ms)[n // 2]
         print(f'stage {name}: median {ms:.2f} ms wall')
     print(f'request bs{b} bf16: {wall_us / n / 1e3:.2f} ms wall under the '
           f'profiler, device busy {busy / n / 1e3:.2f} ms, idle share '
-          f'{1 - busy / wall_us:.3f}, {len(kernels) / n:.0f} kernels')
+          f'{1 - busy / wall_us:.3f}, {len(kernels) / n:.0f} kernels, peak '
+          f'memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
     totals = {}
     for e in kernels:
         totals[e.name] = totals.get(e.name, 0.0) + e.device_time

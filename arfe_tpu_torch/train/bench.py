@@ -75,6 +75,27 @@ CASCADE_MASK_CFG = os.path.join(_CONFIGS, 'cascade_rcnn',
 #: coder, RoIAlign with ``sample_num=2``)
 MASK_V1_CFG = os.path.join(_CONFIGS, 'mask_rcnn',
                            'mask_rcnn_r50_caffe_fpn_poly_1x_coco_v1.py')
+#: the region proposal network alone, over the FPN's levels and over C4's
+#: one stride-16 level; FSAF
+RPN_CFG = os.path.join(_CONFIGS, 'rpn', 'rpn_r50_fpn_1x_coco.py')
+RPN_C4_CFG = os.path.join(_CONFIGS, 'rpn', 'rpn_r50_caffe_c4_1x_coco.py')
+FSAF_CFG = os.path.join(_CONFIGS, 'fsaf', 'fsaf_r50_fpn_1x_coco.py')
+#: Faster R-CNN R50 + FPN with the GIoU loss in the RoI head; with the
+#: authors' experimental necks (FPNBU, FPN + FPNRelation, FPNCBAM with
+#: AR-RFF's triple RoIs); with AttRoIs' cross-RoI attention head (its
+#: config declares 80 classes); and the VisDrone "+fac" detector (12
+#: classes, the train set a list of two)
+GIOU_CFG = os.path.join(_CONFIGS, 'faster_rcnn',
+                        'faster_rcnn_r50_fpn_giou_1x_coco.py')
+FPNBU_CFG = os.path.join(_CONFIGS, 'arfe', 'faster_rcnn_r50_fpn_bu_1x_coco.py')
+RELATION_CFG = os.path.join(_CONFIGS, 'arfe',
+                            'faster_rcnn_r50_fpn_relation_1x_coco.py')
+CBAM_CFG = os.path.join(_CONFIGS, 'mytrain',
+                        'faster_rcnn_r50_fpn_cbam_1x_coco.py')
+ATT_CFG = os.path.join(_CONFIGS, 'faster_rcnn',
+                       'faster_rcnn_r50_fpn_att_1x_visdrone.py')
+VISDRONE_CFG = os.path.join(_CONFIGS, 'mytrain',
+                            'faster_rcnn_r50_fpn_multicls_1x_visdrone.py')
 H, W = 800, 1344             # the bench's padded image (bench.py:28)
 IMG_SHAPE = (800.0, 1333.0)  # its content shape (bench.py:90)
 BATCH_KEYS = ('img', 'img_shape', 'gt_bboxes', 'gt_valid', 'gt_labels')
@@ -273,9 +294,16 @@ def loss_and_grads(model, batch, seed=5, hard_scores=None, seen=None,
                 rpn.get_proposals = own
         if mining:
             del head._candidate_hard_scores
-    return ({k: float(v.detach()) for k, v in logs.items()},
+    return ({k: log_value(v) for k, v in logs.items()},
             {k: p.grad.detach().cpu().clone()
              for k, p in model.named_parameters() if p.grad is not None})
+
+
+def log_value(v):
+    """A logged value on the host: a float, or a tuple of floats for a
+    vector (FSAF's ``gt_assign_hist``)."""
+    v = v.detach().float()
+    return float(v) if v.numel() == 1 else tuple(v.cpu().tolist())
 
 
 def rpn_candidates(rpn, shared):
@@ -386,7 +414,9 @@ def differences(a, b):
     ``phi`` bias, which shifts each row's logits by a constant), with that
     parameter's name."""
     (la, ga), (lb, gb) = a, b
-    losses = {k: abs(la[k] - lb[k]) / max(abs(la[k]), 1e-12) for k in la}
+    va, vb = ({k: np.atleast_1d(v) for k, v in x.items()} for x in (la, lb))
+    losses = {k: float(np.abs(va[k] - vb[k]).max())
+              / max(float(np.abs(va[k]).max()), 1e-12) for k in la}
     floor = 1e-6 * max(g.abs().max().item() for g in ga.values())
     grads = max(((ga[k] - gb[k]).abs().max().item()
                  / (ga[k].abs().max().item() + floor), k) for k in ga)

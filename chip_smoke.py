@@ -16,13 +16,13 @@
    (kernel A, then the plain version's VJP) gives the plain gradients.
 3. Serves the flagship Faster R-CNN R50 + AR-FPN
    (``configs/_base_/models/faster_rcnn_r50_arfpn.py``) at full width on
-   ``cuda`` with seeded random weights: four bs1 and two bs2 requests at
-   800x1344 in bf16, and two bs1 requests in f32. Every request must launch
+   ``cuda`` with seeded random weights: two bs1 and one bs2 request at
+   800x1344 in bf16, and one bs1 request in f32. Every request must launch
    the attention and the RoIAlign forward kernels once each.
 4. Checks the served detector against the same weights on the CPU (plain
    path) on a small image.
 5. Trains the flagship at full width with the bench's SGD schedule and
-   synthetic batch (``bench.py:150-185``): four bs2 steps at 800x1344 in
+   synthetic batch (``bench.py:150-185``): two bs2 steps at 800x1344 in
    bf16 and one in f32. Every step must launch all three kernels; the frozen
    stem and layer1 must not move; every other tensor must move, unless its
    gradient was exactly 0 in every step (those are named). Then holds
@@ -34,26 +34,26 @@
    gradients.
 7. Serves the AR-RFF flagship (config #4,
    ``configs/arfe/faster_rcnn_r50_arfpn_arrff_1x_coco.py``) at full width:
-   two bs1 and two bs2 requests in bf16 and two bs1 in f32. Each request
+   a bs1 and a bs2 request in bf16 and a bs1 in f32. Each request
    must launch kernel A once and kernel B exactly once, over its 3P triple
    RoIs [ori, lw, lh]; then checks it against the CPU as in 4.
 8. Holds kernel B against its plain version on the triple RoIs, levels and
    features of the first bs1 and bs2 requests (R = 3000, 6000) in bf16 and
    f32, times both, and prints how many RoIs reach past the image and how
    they spread over the levels.
-9. Trains AR-RFF at full width, bs2: two bf16 steps and one f32. Each step
+9. Trains AR-RFF at full width, bs2: a bf16 step and an f32 one. Each step
    launches A, B and C once; the frozen stem and layer1 stay; the fusion
    convs (``hh_conv``, ``wh_conv``, ``final_conv``) move. Holds kernel C
    against its plain version on the first step's cotangent and triple RoIs
    (R = 3072) and times both; then a training step against the CPU as in 6.
 10. Serves the "+fac" detector
-    (``configs/arfe/faster_rcnn_r50_arfpn_fac_1x_coco.py``): two bs1 bf16
-    requests, then against the CPU as in 4.
-11. Trains "+fac": two bs2 bf16 steps with a finite ``loss_multi_cls``,
+    (``configs/arfe/faster_rcnn_r50_arfpn_fac_1x_coco.py``): a bs1 bf16
+    request, then against the CPU as in 4.
+11. Trains "+fac": a bs2 bf16 step with a finite ``loss_multi_cls``,
     then a training step against the CPU as in 6.
 12. Evaluates AR-RFF (the port config
     ``arfe_tpu_torch/configs/faster_rcnn_r50_arfpn_arrff_1x_coco.py``) on
-    a synthetic COCO set of 8 PNGs at COCO's shapes, written under
+    a synthetic COCO set of 4 PNGs at COCO's shapes, written under
     ``build/eval_coco``, through the test CLI's functions (dataset, test
     pipeline, loader with the config's 2 workers, ``single_device_test``,
     ``evaluate``) at (1333, 800) on the card, bf16 and f32: every image
@@ -78,13 +78,14 @@
     ``epoch_2.pth``, that the resumed epoch 2 has the uninterrupted run's
     images, flips and LRs and its first iteration's losses, that the test
     CLI gives the six bbox stats and the card's f32 detections with
-    ``latest.pth`` match the CPU's plain path's at (667, 400), and that the
+    ``latest.pth`` match the CPU's plain path's at (667, 400) on the set's
+    first two images (one of each aspect), and that the
     validation wrote its line. Prints the seconds per iteration, the
     loader's share, images per second, the idle share under the profiler,
     and the checkpoints' save and load seconds and size.
 14. Serves Mask R-CNN + AR-FPN (config #5a,
-    ``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``) at full width: two bs1
-    and one bs2 request in bf16 and one bs1 in f32. Each request launches A
+    ``configs/arfe/mask_rcnn_r50_arfpn_1x_coco.py``) at full width: a bs1
+    and a bs2 request in bf16 and a bs1 in f32. Each request launches A
     once and B exactly twice (the boxes' 7 x 7 bins, then the detections'
     14 x 14: every detection slot, padding included) and gives finite mask
     logits (B, 100, 28, 28); then the card against the CPU as in 4, the
@@ -92,7 +93,7 @@
 15. Holds kernel B at 14 x 14 against its plain version on the mask RoIs,
     levels and features of the first bs1 and bs2 requests (R = 100, 200),
     bf16 and f32, bit for bit, and times both beside the bound.
-16. Trains Mask R-CNN at full width, bs2: two bf16 steps and one f32 step
+16. Trains Mask R-CNN at full width, bs2: a bf16 step and an f32 step
     with the bench's random mask crops. Each step launches A once, B and C
     twice; ``loss_mask`` is finite, the frozen stem and layer1 stay, every
     ``mask_head`` tensor moves. Holds kernel C at 14 x 14 against its plain
@@ -106,20 +107,21 @@
     pipeline and collate), then the test CLI on ``latest.pth`` with
     ``--eval bbox segm``: A once, B and C twice per iteration; A once and B
     twice per evaluated image; the twelve stats; the card's f32 bbox and
-    segm stats within 1e-3 of the CPU's plain path at (667, 400), ground
-    truth seeded from the CPU's detections and masks, every detection
+    segm stats within 1e-3 of the CPU's plain path at (667, 400) on the
+    set's first two images, ground truth seeded from the CPU's detections
+    and masks, every detection
     matched one for one (phase 13's classifier spread, ``score_thr=0``).
     Prints the host paste's time per image.
 18. Serves Cascade R-CNN + AR-FPN (config #5b,
-    ``configs/arfe/cascade_rcnn_r50_arfpn_1x_coco.py``) at full width: two
-    bs1 and one bs2 request in bf16 and one bs1 in f32. Each request
+    ``configs/arfe/cascade_rcnn_r50_arfpn_1x_coco.py``) at full width: a
+    bs1 and a bs2 request in bf16 and a bs1 in f32. Each request
     launches A once and B exactly three times (one per stage: the RPN's
     proposals, then the boxes each stage regressed); then the card against
     the CPU as in 4.
 19. Holds kernel B against its plain version on each stage's RoIs, levels
     and features of the first bs1 and bs2 requests (R = 1000, 2000 a
     stage), bf16 and f32, bit for bit, and times both beside the bound.
-20. Trains Cascade R-CNN at full width, bs2: two bf16 steps and one f32.
+20. Trains Cascade R-CNN at full width, bs2: a bf16 step and an f32 one.
     Each step launches A once, B and C three times; the frozen stem and
     layer1 stay; stages 1 and 2's shared FCs and classifiers move. Holds
     kernel C against its plain version on each stage's cotangent and RoIs
@@ -127,11 +129,13 @@
     training step against the CPU as in 6 (every stage's losses).
 21. Trains Cascade R-CNN through the train CLI (the port config
     ``arfe_tpu_torch/configs/cascade_rcnn_r50_arfpn_1x_coco.py``: one epoch
-    of 4 iterations, bs2 bf16, 8 box PNGs under ``build/cascade_coco``) and
-    runs the test CLI on ``latest.pth`` with ``--eval bbox``: A once, B and
+    of 4 iterations, bs2 bf16, 8 box PNGs under ``build/cascade_coco``,
+    read without loader workers) and runs the test CLI on ``latest.pth``
+    with ``--eval bbox``: A once, B and
     C three times per iteration; A once and B three times per evaluated
     image; the six stats; the card's f32 stats within 1e-3 of the CPU's
-    plain path at (667, 400), every detection matched (phase 13's rule).
+    plain path at (667, 400) on the set's first two images, every
+    detection matched (phase 13's rule).
 22. Serves RetinaNet + AR-FPN (config #2,
     ``configs/arfe/retinanet_r50_arfpn_1x_coco.py``): the requests of 18;
     each launches A once and B never; then the card against the CPU as in
@@ -142,7 +146,7 @@
     split count ``key_splits`` picks and a forced one that leaves splits
     without keys, and times it beside its bound, the plain version and
     SDPA.
-24. Trains RetinaNet at full width, bs2: two bf16 steps and one f32 (the
+24. Trains RetinaNet at full width, bs2: a bf16 step and an f32 one (the
     focal loss over all 201,600 anchors an image). Each step launches A
     once and neither B nor C; the head's last convs and its classifier
     move; then a training step against the CPU as in 6.
@@ -157,7 +161,7 @@
     the card against the CPU as in 4.
 27. Holds kernel A at N = 1050 (as 23) and B (bit for bit, as 19) on the
     first bs1 and bs2 Libra requests' arguments.
-28. Trains Libra at full width, bs2: two bf16 steps and one f32 with the
+28. Trains Libra at full width, bs2: a bf16 step and an f32 one with the
     instance-balanced positives, IoU-balanced negatives and balanced L1,
     each step A, B and C once, ``fc_reg`` moving; prints the first step's
     sampling per gt and IoU bin, which must be round robin. Holds kernel C
@@ -169,8 +173,8 @@
     whose data section comes through ``_base_``; ``build/libra_coco``).
 30. Serves Libra R101 (``libra_faster_rcnn_r101_fpn_1x_coco.py``, each
     residual block's last BatchNorm scale damped by ``R101_DAMP``): two
-    bs1 bf16 requests, A and B once each, against the CPU; then two bs2
-    bf16 steps, A, B and C once each, and its peak memory.
+    bs1 bf16 requests, A and B once each, against the CPU; then a bs2
+    bf16 step, A, B and C once, and its peak memory.
 31. Serves Libra RetinaNet (``libra_retinanet_r50_fpn_1x_coco.py``: BFP
     at refine level 1 of five levels from stride 8, N = 50 x 84 = 4200):
     A once, no B; against the CPU.
@@ -228,6 +232,58 @@
     (``mask_rcnn_r50_caffe_fpn_poly_1x_coco_v1.py``: the legacy +1 box
     coder, RoIAlign with ``sample_num=2``): one bs1 request, no A, B
     twice; against the CPU.
+48. Serves the RPN alone (``configs/rpn/rpn_r50_fpn_1x_coco.py``) at bs1
+    and bs2 bf16 and bs1 f32: no A, no B, 1000 proposals an image; against
+    the CPU (each level's candidate logits and regressions within 1e-4 of
+    their scale, the card's proposals the plain selection from its own
+    candidates: ``bench.selection_faults`` finds none; how many of the
+    CPU's the card's lacks printed, a top-k or NMS flip among near-tied
+    objectness scores).
+49. The proposals' average recall: one f32 request at 800x1344 on the card
+    and on the CPU, a COCO set of that image with gts jittered from the
+    CPU's proposals, ``CocoDataset.evaluate('proposal_fast')``: each
+    ``AR@100/300/1000`` within 1e-6 plus the share of gts that the
+    proposals either side's first n lacks could move.
+50. Trains the RPN (a bf16 and an f32 step, no kernel; ``rpn_cls`` and
+    ``rpn_reg`` move), then a step against the CPU.
+51. Serves its C4 form (``rpn_r50_caffe_c4_1x_coco.py``: one stride-16
+    level, ``nms_pre`` 12000, 2000 proposals) at bs1 bf16 and f32, and
+    against the CPU as 48.
+52. Serves FSAF (``configs/fsaf/fsaf_r50_fpn_1x_coco.py``: one square
+    anchor a position, the TBLR coder, the ReLU on the box branch; its
+    classifier's weights scaled as RetinaNet's): no A, no B; against the
+    CPU. Trains it (no kernel; the online level choice's
+    ``gt_assign_hist`` printed a step), then a step against the CPU, the
+    histogram held exactly.
+53-58. Faster R-CNN R50 + FPN with the GIoU loss in the RoI head
+    (``faster_rcnn_r50_fpn_giou_1x_coco.py``): served at bs1 and bs2 bf16
+    and bs1 f32 (no A, B once a request) and against the CPU; kernel B on
+    the first bs1 and bs2 requests' proposals, bit for bit in bf16 and
+    f32; trained (a bf16 and an f32 step, B and C once; ``fc_reg`` moves),
+    kernel C on the first step's cotangent and RoIs (1e-5); ``IoULoss`` and
+    ``BoundedIoULoss`` and their gradients on that step's RoI head inputs
+    (the encoded deltas both packages feed the loss), card against CPU; a
+    step against the CPU.
+59-63. The same for FPNBU (``configs/arfe/faster_rcnn_r50_fpn_bu_1x_coco.
+    py``; its ``bu_convs`` and ``compress_convs`` move).
+64-68. The same for FPN + FPNRelation (``faster_rcnn_r50_fpn_relation_1x_
+    coco.py``).
+69-73. The same for FPNCBAM with AR-RFF's head (``configs/mytrain/faster_
+    rcnn_r50_fpn_cbam_1x_coco.py``): B once a request over the 3P triple
+    RoIs (R = 3000, 6000), once a step over 3072.
+74-78. The same for AttRoIs (``faster_rcnn_r50_fpn_att_1x_visdrone.py``,
+    80 classes as its config says), a bs2 f32 request too, and against the
+    CPU on a batch of two: its cross-RoI attention spans the batch's
+    images, so the check compares the same batch.
+79. VisDrone "+fac" (``configs/mytrain/faster_rcnn_r50_fpn_multicls_1x_
+    visdrone.py``, 12 classes) through the CLIs as 21, its ``data.train``
+    a list of two sets of four PNGs (a ``ConcatDataset``) labelled with
+    VisDrone's categories under ``build/visdrone_coco``, bs2, the gradient
+    clipped at norm 35 (unclipped, the run at random weights reaches NaN):
+    B and C once an
+    iteration, B once an evaluated image; kernel B on the first evaluated
+    image's RoIs bit for bit and C on the first iteration's cotangent
+    (1e-5).
 
 Prints each phase's wall seconds and the total, one JSON line of kernel
 numbers (``launches`` counts the flagship's training run,
@@ -242,7 +298,10 @@ eval}`` those of phases 18, 20, 21 and 22, 24, 25,
 ``launches_bfp_serve`` those of phases 26-36,
 ``launches_{caffe,libra_x101,c4_mask,c4,cascade_mask,v1}_serve``,
 ``launches_{caffe,libra_x101,c4_mask,cascade_mask}_train`` and
-``launches_caffe_eval`` those of phases 37-47; the ``_arrff_r*`` keys
+``launches_caffe_eval`` those of phases 37-47,
+``launches_{rpn,fsaf,giou,fpnbu,relation,cbam,att}_{serve,train}``,
+``launches_rpn_c4_serve`` and ``launches_visdrone_eval`` those of phases
+48-79; the ``_arrff_r*`` keys
 are kernels B and C at AR-RFF's shapes, the ``_mask_r*`` keys B and C at 14
 x 14 bins, the ``_cascade_s{i}_r*`` keys B and C on cascade stage i's
 inputs, the ``_retina_n1050*`` keys A at RetinaNet's refine level, the
@@ -252,7 +311,9 @@ B on OHEM's hard-mining RoIs, the ``_libra_x101_n1050*`` keys A on Libra
 X101's refine level, the ``_c4_r*`` and ``_c4_mask_r*`` keys B and C at the
 C4 shapes (14 x 14, 1024 channels; the boxes' and the masks' launches), the
 ``_cascade_mask_s{i}_*`` keys B and C on cascade mask stage i's inputs, the
-``_eval_*`` keys A and B on a real image's arguments, the ``train_run_*``
+``_{giou,fpnbu,relation,cbam,att,visdrone}_r*`` keys B and C on those
+families' arguments, the ``_eval_*`` keys A and B on a real image's
+arguments, the ``train_run_*``
 keys phase 13's numbers, ``mask_paste_ms_per_image`` phase 17's), then the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``. Exits non-zero, with no result line, if there is no CUDA device or
@@ -852,11 +913,18 @@ def serve(model, requests):
         finally:
             fa.fused_attention_cuda, ra.roi_align_cuda = kernel_a, kernel_b
         ms = (time.perf_counter() - t0) * 1e3
-        dets, labels, valid = out[:3]
         da, dr = fa.launches - a0, ra.launches - r0
-        good = (dets.shape == (b, 100, 5) and labels.shape == (b, 100)
-                and bool(torch.isfinite(dets).all()) and da == n_a
-                and dr == n_b and len(out) == 3 + with_mask)
+        if len(out) == 2:
+            # an RPN's proposals and their validity
+            dets, valid = out
+            n = model.rpn_head.test_cfg['nms_post']
+            good = dets.shape == (b, n, 5) and valid.shape == (b, n)
+        else:
+            dets, labels, valid = out[:3]
+            good = (dets.shape == (b, 100, 5) and labels.shape == (b, 100)
+                    and len(out) == 3 + with_mask)
+        good = good and bool(torch.isfinite(dets).all()) and da == n_a \
+            and dr == n_b
         launched = [args[b, dt, 'launch', j] for j in range(order[0])] \
             if (b, dt, 'launch', 0) in args else []
         rois = ' + '.join(
@@ -880,20 +948,39 @@ def serve(model, requests):
 # phase 4: the served detector against its plain path on the CPU
 # --------------------------------------------------------------------------
 
-def reference_check(model, cfg=FLAGSHIP_CFG):
-    """Same weights, same f32 image (1, 320, 480, 3): features within 1e-4
+def reference_check(model, cfg=FLAGSHIP_CFG, batch=1, proposals=None):
+    """Same weights, same f32 images (``batch``, 320, 480, 3; a batch of two
+    for a head whose RoIs see each other's, AttRoIs'): features within 1e-4
     of their scale, and every CPU detection scoring >= 0.1 matched on the
     card by one of its label with IoU > 0.7 (a box of zero area: within 1
     px on every side) and a score within 1e-2; for a mask model, each
     matched detection's mask logits (boxes of nonzero area) within 1e-3 of
-    the largest |logit| (at least 1) of the CPU's."""
+    the largest |logit| (at least 1) of the CPU's. With ``proposals``, both
+    sides serve that many proposals an image (the C4 head runs ResNet's
+    ``layer4`` on each: 1.46 GFLOP a RoI on the CPU)."""
     from arfe_tpu_torch.apis import init_detector
     from arfe_tpu_torch.core.bbox import bbox_overlaps
     cpu = init_detector(cfg, device='cpu')
     cpu.load_state_dict(model.state_dict())
-    img = torch.randn((1, 320, 480, 3),
+    if proposals is None:
+        return _reference_check(model, cpu, batch, bbox_overlaps)
+    served = model.rpn_head.test_cfg
+    for m in (model, cpu):
+        m.rpn_head.test_cfg = dict(m.rpn_head.test_cfg, nms_post=proposals,
+                                   max_num=proposals)
+    try:
+        return _reference_check(model, cpu, batch, bbox_overlaps)
+    finally:
+        model.rpn_head.test_cfg = served
+
+
+def _reference_check(model, cpu, batch, bbox_overlaps):
+    """:func:`reference_check` on the card's ``model`` and the ``cpu``
+    copy."""
+    img = torch.randn((batch, 320, 480, 3),
                       generator=torch.Generator().manual_seed(3)) * 0.2
-    shapes, scales = torch.tensor([[320.0, 470.0]]), torch.ones(1, 4)
+    shapes = torch.tensor([[320.0, 470.0], [310.0, 480.0]][:batch])
+    scales = torch.ones(batch, 4)
     with torch.no_grad():
         errs = [((g.cpu() - c).abs().max() / c.abs().max()).item()
                 for g, c in zip(model.extract_feat(img.cuda()),
@@ -901,9 +988,20 @@ def reference_check(model, cfg=FLAGSHIP_CFG):
     want = cpu.simple_test(img, shapes, scales)
     got = [t.cpu() for t in model.simple_test(img.cuda(), shapes.cuda(),
                                               scales.cuda())]
-    keep = want[2][0] & (want[0][0, :, 4] >= 0.1)
-    wd, wl = want[0][0][keep], want[1][0][keep]
-    gd, gl = got[0][0][got[2][0]], got[1][0][got[2][0]]
+    ok = max(errs) <= 1e-4
+    for i in range(batch):
+        ok = _detections_match(want, got, i, bbox_overlaps) and ok
+    print(f'reference (CPU plain path, {batch}x320x480 f32): feature rel err '
+          f'{max(errs):.2e} (tol 1e-4) {"ok" if ok else "FAIL"}')
+    return ok
+
+
+def _detections_match(want, got, i, bbox_overlaps):
+    """:func:`reference_check`'s rule for image ``i`` of the CPU's and the
+    card's ``simple_test`` outputs; prints what it found."""
+    keep = want[2][i] & (want[0][i, :, 4] >= 0.1)
+    wd, wl = want[0][i][keep], want[1][i][keep]
+    gd, gl = got[0][i][got[2][i]], got[1][i][got[2][i]]
     # a box of zero area (a proposal clamped flat against the image's
     # border) has IoU 0 with every box, itself too: it is matched by a card
     # box within 1 px on every side instead
@@ -914,31 +1012,30 @@ def reference_check(model, cfg=FLAGSHIP_CFG):
     close = overlap & (wl[:, None] == gl[None]) \
         & ((wd[:, None, 4] - gd[None, :, 4]).abs() < 1e-2)
     matched = int(close.any(dim=1).sum())
-    ok = max(errs) <= 1e-4 and len(wd) > 0 and matched == len(wd)
+    ok = len(wd) > 0 and matched == len(wd)
     masks = ''
     if len(want) == 4:
         # the first card detection matching each CPU one, boxes of nonzero
         # area
-        wm = want[3][0][keep]
-        gm = got[3][0][got[2][0]]
-        pairs = [(i, int(torch.nonzero(close[i])[0]))
-                 for i in range(len(wd)) if close[i].any() and not flat[i]]
+        wm = want[3][i][keep]
+        gm = got[3][i][got[2][i]]
+        pairs = [(k, int(torch.nonzero(close[k])[0]))
+                 for k in range(len(wd)) if close[k].any() and not flat[k]]
         scale = max(1.0, wm.abs().max().item()) if len(wm) else 1.0
-        err = max((float((gm[j] - wm[i]).abs().max()) for i, j in pairs),
+        err = max((float((gm[j] - wm[k]).abs().max()) for k, j in pairs),
                   default=float('inf'))
         ok = ok and len(pairs) > 0 and err <= 1e-3 * scale
         masks = (f'; mask logits of {len(pairs)} matched detections: max '
                  f'abs err {err:.3e} (tol 1e-3 x {scale:.3f}), CPU logits '
                  f'in [{wm.min().item():.3f}, {wm.max().item():.3f}]')
-    print(f'reference (CPU plain path, 320x480 f32): feature rel err '
-          f'{max(errs):.2e} (tol 1e-4), {matched}/{len(wd)} detections '
-          f'matched ({int(flat.sum())} of zero area), {int(got[2].sum())} '
+    print(f'reference image {i}: {matched}/{len(wd)} detections '
+          f'matched ({int(flat.sum())} of zero area), {int(got[2][i].sum())} '
           f'on the card (lowest score '
           f'{gd[:, 4].min().item() if len(gd) else float("nan"):.4f})'
           f'{masks} {"ok" if ok else "FAIL"}')
-    for i in torch.nonzero(~close.any(dim=1)).flatten().tolist():
-        print(f'  unmatched: label {int(wl[i])} score {wd[i, 4]:.4f} box '
-              f'{[round(x, 2) for x in wd[i, :4].tolist()]}')
+    for k in torch.nonzero(~close.any(dim=1)).flatten().tolist():
+        print(f'  unmatched: label {int(wl[k])} score {wd[k, 4]:.4f} box '
+              f'{[round(x, 2) for x in wd[k, :4].tolist()]}')
     return ok
 
 
@@ -1050,7 +1147,7 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
             logs = step(batches[dt], gen)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            logs = {k: v.item() for k, v in logs.items()}
+            logs = {k: bench.log_value(v) for k, v in logs.items()}
             grew = [n - c for n, c in zip(
                 (fa.launches, ra.launches, ra.bwd_launches), counts)]
             g_max = torch.stack([params[k].grad.abs().max()
@@ -1062,8 +1159,10 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
             had_grad = {k: had_grad[k] or nz for k, nz in zip(trainable,
                                                               nonzero)}
             movable = {k: movable[k] or b for k, b in zip(trainable, big)}
-            top = (sampled['weights'][:, -n_top:] > 0).sum(-1).tolist()
-            good = all(np.isfinite(v) for v in logs.values()) \
+            # FSAF's loss assigns its own targets
+            top = (sampled['weights'][:, -n_top:] > 0).sum(-1).tolist() \
+                if 'weights' in sampled else 'not sampled'
+            good = all(np.isfinite(v).all() for v in logs.values()) \
                 and grew == [n_a, n_fwd, n_b] \
                 and ('loss_multi_cls' in logs
                      or not model.with_multi_cls) \
@@ -1072,7 +1171,8 @@ def train(cfg=FLAGSHIP_CFG, dtypes=(torch.bfloat16,) * 4 + (torch.float32,),
             rois = ' and '.join(f'{a[1].shape[0]} RoIs at {a[0].shape[1]} x '
                                 f'{a[0].shape[1]}' for a in step_args['all'])
             print(f'train step {i}: bs2 {str(dt)[6:]} {ms:.2f} ms, '
-                  + ', '.join(f'{k} {v:.5f}' for k, v in logs.items())
+                  + ', '.join(f'{k} {v:.5f}' if isinstance(v, float)
+                              else f'{k} {v}' for k, v in logs.items())
                   + f', launches attention {grew[0]} roi_align {grew[1]} '
                   f'roi_align_bwd {grew[2]} (over {rois or "no RoIs"}), '
                   f'anchors weighted at stride {top_stride[0]} '
@@ -1297,7 +1397,8 @@ CLS_SCALE = {'arrff': 0.1, 'fac': 0.006, 'mask': 1.0, 'cascade': 2.0,
              'retina': 7.0, 'libra': 1.2, 'libra101': 1.0,
              'libra_retina': 5.0, 'bfp': 1.0, 'caffe': 1.15,
              'libra_x101': 250.0, 'c4_mask': 0.33, 'c4': 0.33,
-             'cascade_mask': 2.0, 'v1': 1.15}
+             'cascade_mask': 2.0, 'v1': 1.15, 'fsaf': 7.0, 'giou': 1.1,
+             'fpnbu': 1.3, 'relation': 1.04, 'cbam': 0.35, 'att': 0.021}
 # Mask R-CNN's classifier is the flagship's and does not saturate (at
 # 320x480: 19 detections score >= 0.1, the 100th 0.067); its entry draws
 # conv_out on the CPU, as the others do. Cascade R-CNN averages its three
@@ -1418,12 +1519,14 @@ def arfe(name, requests, train_dtypes, must_move):
 
 PORT_CFG = 'arfe_tpu_torch/configs/faster_rcnn_r50_arfpn_arrff_1x_coco.py'
 EVAL_ROOT = 'build/eval_coco'
-# (h, w) of COCO val images: padded at (1333, 800) to 800x1088, 1088x800,
-# 800x1216 and 1216x800
-EVAL_SIZES = [(480, 640), (640, 480), (427, 640), (375, 500), (640, 427),
-              (333, 500), (424, 640), (480, 640)]
-# the CPU's plain path runs the full-width detector at this scale
+# (h, w) of COCO val images: padded at (1333, 800) to 800x1088, 1088x800
+# and 800x1216
+EVAL_SIZES = [(480, 640), (640, 480), (427, 640), (375, 500)]
+# the CPU's plain path runs the full-width detector at this scale, on the
+# first COMPARE_IMAGES images of a set written for the CLIs (one of each
+# aspect)
 CPU_SCALE = (667, 400)
+COMPARE_IMAGES = 2
 STATS = ('bbox_mAP', 'bbox_AP50', 'bbox_AP75', 'bbox_APs', 'bbox_APm',
          'bbox_APl')
 
@@ -1755,7 +1858,7 @@ def evaluate_arrff():
 
 
 def eval_reference_check(model, images, root=EVAL_ROOT, path=PORT_CFG,
-                         match=False, metrics=('bbox',)):
+                         match=False, metrics=('bbox',), categories=None):
     """The same weights and files (``root``) on the CPU's plain path and on
     the card in f32, at ``CPU_SCALE``; ground truth seeded from the CPU's
     detections (and masks). The six stats of each of ``metrics`` within
@@ -1777,7 +1880,8 @@ def eval_reference_check(model, images, root=EVAL_ROOT, path=PORT_CFG,
     got = single_device_test(model, build_test_loader(cfg)[1],
                              show_progress=False, dtype=torch.float32)
     synthetic.write_annotations(f'{root}/ann.json', images,
-                                synthetic.seed_ground_truth(images, want))
+                                synthetic.seed_ground_truth(images, want),
+                                categories or synthetic.CATEGORIES)
     dataset = build_test_loader(cfg)[0]
     s_cpu = dataset.evaluate(want, metric=list(metrics))
     s_card = dataset.evaluate(got, metric=list(metrics))
@@ -2139,7 +2243,8 @@ def train_run_arrff(name_limit):
     # score (the config's copy with score_thr=0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    synthetic.write_annotations(f'{TRAIN_ROOT}/ann.json', images[:4])
+    synthetic.write_annotations(f'{TRAIN_ROOT}/ann.json',
+                                images[:COMPARE_IMAGES])
     compare = f'{TRAIN_ROOT}/compare_cfg.py'
     with open(compare, 'w') as f:
         f.write(f"_base_ = ['{os.path.abspath(dumped)}']\n"
@@ -2147,7 +2252,8 @@ def train_run_arrff(name_limit):
     model = init_detector(compare, f'{work}/latest.pth')
     good = _spread_classifier(model, _eval_config(
         CPU_SCALE, workers=0, root=TRAIN_ROOT, path=compare))
-    ok = good and eval_reference_check(model, images[:4], root=TRAIN_ROOT,
+    ok = good and eval_reference_check(model, images[:COMPARE_IMAGES],
+                                       root=TRAIN_ROOT,
                                        path=compare, match=True) and ok
     del model
     torch.cuda.empty_cache()
@@ -2381,7 +2487,8 @@ def evaluate_mask(name_limit):
     # score kept and the classifier spread (phase 13)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    synthetic.write_annotations(f'{MASK_ROOT}/ann.json', images[:4])
+    synthetic.write_annotations(f'{MASK_ROOT}/ann.json',
+                                images[:COMPARE_IMAGES])
     compare = f'{MASK_ROOT}/compare_cfg.py'
     with open(compare, 'w') as f:
         f.write(f"_base_ = ['{os.path.abspath(dumped)}']\n"
@@ -2391,7 +2498,8 @@ def evaluate_mask(name_limit):
     with PasteLog() as pastes:
         good = _spread_classifier(model, cfg)
         ok = good and eval_reference_check(
-            model, images[:4], root=MASK_ROOT, path=compare, match=True,
+            model, images[:COMPARE_IMAGES], root=MASK_ROOT, path=compare,
+            match=True,
             metrics=('bbox', 'segm')) and ok
     full = sorted(t for k, t in pastes.calls if k == 100)
     if full:
@@ -2643,10 +2751,43 @@ def retinanet(requests, train_dtypes):
     return results, launches_serve, launches_train, rows
 
 
-def train_and_evaluate(name, port_cfg, root, n_b, name_limit, n_a=1):
+@contextlib.contextmanager
+def _keep_first(kept, kind):
+    """With ``kept`` a dict, keeps the arguments of the first launch of
+    kernel B (``kind`` ``'b'``) or C (``'c'``) inside the block under
+    ``kept[kind]``."""
+    from arfe_tpu_torch.ops import roi_align as ra
+    if kept is None:
+        yield
+        return
+    name = 'roi_align_cuda' if kind == 'b' else 'roi_align_backward_cuda'
+    kernel = getattr(ra, name)
+
+    def keep(*args, **kwargs):
+        if kind == 'b' and 'b' not in kept:
+            feats, rois, lvls = args[:3]
+            kept['b'] = (list(feats), rois.clone(), lvls.clone())
+        elif kind == 'c' and 'c' not in kept:
+            g, rois, lvls, shapes = args[:4]
+            kept['c'] = [g.clone(), rois.clone(), lvls.clone(),
+                         [tuple(x) for x in shapes]]
+        return kernel(*args, **kwargs)
+    setattr(ra, name, keep)
+    try:
+        yield
+    finally:
+        setattr(ra, name, kernel)
+
+
+def train_and_evaluate(name, port_cfg, root, n_b, name_limit, n_a=1,
+                       categories=None, splits=('train', 'val', 'test'),
+                       kernels=None, before_train=None):
     """Writes 8 box PNGs under ``root``, trains the ``port_cfg`` detector at
     full width through ``tools.train.main`` (one epoch of 4 iterations, bs2
-    bf16), runs ``tools.test.main`` on ``latest.pth`` with ``--eval bbox``,
+    bf16; images read in the calling process, ``data.workers_per_gpu=0``,
+    which the test CLI takes from the run's copy of the config: phases
+    12, 13 and 17 run the loaders' spawned workers), runs
+    ``tools.test.main`` on ``latest.pth`` with ``--eval bbox``,
     and checks: every iteration launches A ``n_a`` times, B and C ``n_b``
     times; every evaluated image A ``n_a`` times and B ``n_b`` times; the six stats print;
     the card's f32 stats with ``latest.pth`` within 1e-3 of the CPU's plain
@@ -2654,8 +2795,14 @@ def train_and_evaluate(name, port_cfg, root, n_b, name_limit, n_a=1):
     every detection matched one for one. A two-stage detector keeps every
     score and its classifiers are spread down (phase 13); RetinaNet keeps
     its 0.05 threshold and its classifier's weights are spread up
-    (``RETINA_SPREAD_SCALES``). Returns whether all held and the
-    evaluation's launches."""
+    (``RETINA_SPREAD_SCALES``). ``categories`` (default COCO's) label the
+    set's boxes; ``splits`` are the data sections pointed at the set by
+    ``--options`` (a config whose ``data.train`` is a list names its sets
+    itself). With ``kernels`` (a dict), the first training iteration's
+    first kernel C arguments and the first evaluated image's first kernel
+    B arguments are kept there under ``'c'`` and ``'b'``; ``before_train``
+    is called with the set's images and annotations before training.
+    Returns whether all held and the evaluation's launches."""
     import shutil
 
     from arfe_tpu_torch.apis import init_detector
@@ -2668,20 +2815,24 @@ def train_and_evaluate(name, port_cfg, root, n_b, name_limit, n_a=1):
     from arfe_tpu_torch.tools import train as train_cli
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.time()
-    images, anns = synthetic.write_box_set(root, TRAIN_SIZES, seed=17)
+    categories = categories or synthetic.CATEGORIES
+    images, anns = synthetic.write_box_set(root, TRAIN_SIZES, seed=17,
+                                           categories=categories)
     print(f'{name} set: {len(images)} PNGs at {TRAIN_SIZES[:2]}, {len(anns)} '
           f'boxes, written in {time.time() - t0:.1f} s')
+    if before_train is not None:
+        before_train(images, anns)
     work = f'{root}/work'
-    data = [f'data.{split}.{k}={root}/{v}' for split in
-            ('train', 'val', 'test')
+    data = [f'data.{split}.{k}={root}/{v}' for split in splits
             for k, v in (('ann_file', 'ann.json'), ('img_prefix', 'imgs/'))]
     ok = True
     fa.launches = ra.launches = ra.bwd_launches = 0
-    with TrainRunLog() as run:
+    with TrainRunLog() as run, _keep_first(kernels, 'c'):
         history = train_cli.main([
             port_cfg, '--work-dir', work, '--seed', '0', '--dtype', 'bf16',
             '--no-validate', '--options', *data, 'model.pretrained=None',
-            'total_epochs=1', 'log_config.interval=1'])
+            'total_epochs=1', 'log_config.interval=1',
+            'data.workers_per_gpu=0'])
     per_iter = [r['launches'] for r in run.iters]
     losses = [v for e in history if e['mode'] == 'train'
               for k, v in e.items() if 'loss' in k]
@@ -2710,8 +2861,9 @@ def train_and_evaluate(name, port_cfg, root, n_b, name_limit, n_a=1):
     fa.launches = ra.launches = ra.bwd_launches = 0
     cls.simple_test = counted
     try:
-        metrics = test_cli.main([dumped, f'{work}/latest.pth', '--eval',
-                                 'bbox'])
+        with _keep_first(kernels, 'b'):
+            metrics = test_cli.main([dumped, f'{work}/latest.pth', '--eval',
+                                     'bbox'])
     finally:
         cls.simple_test = original
     launches = {'fused_attention': fa.launches, 'roi_align': ra.launches,
@@ -2730,7 +2882,8 @@ def train_and_evaluate(name, port_cfg, root, n_b, name_limit, n_a=1):
     # the card in f32 against the CPU at CPU_SCALE on four images
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    synthetic.write_annotations(f'{root}/ann.json', images[:4])
+    synthetic.write_annotations(f'{root}/ann.json', images[:COMPARE_IMAGES],
+                                categories=categories)
     compare = f'{root}/compare_cfg.py'
     two_stage = n_b > 0
     with open(compare, 'w') as f:
@@ -2741,8 +2894,10 @@ def train_and_evaluate(name, port_cfg, root, n_b, name_limit, n_a=1):
     cfg = _eval_config(CPU_SCALE, workers=0, root=root, path=compare)
     good = _spread_classifier(model, cfg) if two_stage else \
         _spread_classifier(model, cfg, RETINA_SPREAD_SCALES, bias=False)
-    ok = good and eval_reference_check(model, images[:4], root=root,
-                                       path=compare, match=True) and ok
+    ok = good and eval_reference_check(model, images[:COMPARE_IMAGES],
+                                       root=root,
+                                       path=compare, match=True,
+                                       categories=categories) and ok
     del model
     torch.cuda.empty_cache()
     return ok, launches
@@ -3145,7 +3300,8 @@ def c4_mask(requests, train_dtypes):
         model = build_detector(cfg, CLS_SCALE['c4_mask'])
         launches_serve, results['serve'], args = serve(model, requests)
     with phase('c4_mask: card against CPU'):
-        results['reference'] = reference_check(model, cfg)
+        results['reference'] = reference_check(model, cfg,
+                                               proposals=300)
     del model
     torch.cuda.empty_cache()
     with phase('c4_mask: kernel B at 14 x 14, 1024 channels'):
@@ -3189,7 +3345,8 @@ def c4(requests):
         model = build_detector(cfg, CLS_SCALE['c4'])
         launches_serve, results['serve'], _ = serve(model, requests)
     with phase('c4: card against CPU'):
-        results['reference'] = reference_check(model, cfg)
+        results['reference'] = reference_check(model, cfg,
+                                               proposals=300)
     del model
     torch.cuda.empty_cache()
     return results, launches_serve
@@ -3275,6 +3432,355 @@ def mask_v1(requests):
     return results, launches_serve
 
 
+# --------------------------------------------------------------------------
+# phases 48-79: the RPN alone (FPN and C4) with its proposals'
+# recall, FSAF, the IoU losses, FPNBU, FPNRelation, FPNCBAM, AttRoIs, and
+# VisDrone through the CLIs
+# --------------------------------------------------------------------------
+
+def _rpn_candidates_close(model, cpu, img):
+    """The RPN's per-level candidate logits and regressions on the card
+    against the CPU's on ``img``: the largest difference over each one's
+    largest |value|; and the card's shared features."""
+    with torch.no_grad():
+        shared = [model.rpn_head.shared_single(f)
+                  for f in model.extract_feat(img.cuda())]
+        cpu_shared = [cpu.rpn_head.shared_single(f)
+                      for f in cpu.extract_feat(img)]
+        errs = [((a.cpu() - b).abs().max() / b.abs().max()).item()
+                for g, c in zip(bench.rpn_candidates(model.rpn_head, shared),
+                                bench.rpn_candidates(cpu.rpn_head,
+                                                     cpu_shared))
+                for a, b in zip(g[:2], c[:2])]
+    return max(errs), shared
+
+
+def rpn_reference_check(model, cfg):
+    """The RPN served on the card against the same weights on the CPU on a
+    f32 (1, 320, 480, 3) image: each level's candidate logits and
+    regressions within 1e-4 of their scale; every slot filled on both; and
+    the card's proposals the plain selection (top ``nms_pre`` a level,
+    decode, NMS, top ``nms_post``, on the CPU) from the card's own
+    candidates (``bench.selection_faults``: none may differ). How many of
+    the CPU's proposals the card's lacks is printed: at random weights the
+    objectness scores crowd, and a top-k or NMS flip among scores that tie
+    within f32 rounding is not a fault (``PERF.md`` §7)."""
+    from arfe_tpu_torch.apis import init_detector
+    cpu = init_detector(cfg, device='cpu')
+    cpu.load_state_dict(model.state_dict())
+    img = torch.randn((1, 320, 480, 3),
+                      generator=torch.Generator().manual_seed(3)) * 0.2
+    shapes, scales = torch.tensor([[320.0, 470.0]]), torch.ones(1, 4)
+    err, shared = _rpn_candidates_close(model, cpu, img)
+    want = cpu.simple_test(img, shapes, scales)
+    got = model.simple_test(img.cuda(), shapes.cuda(), scales.cuda())
+    faults = bench.selection_faults(model.rpn_head, cpu.rpn_head, (
+        shared, shapes.cuda(), model.rpn_head.test_cfg, *got))
+    lacks = bench.unmatched(*want, *got)
+    ok = err <= 1e-4 and faults == 0 and bool(got[1].all()) \
+        and bool(want[1].all())
+    print(f'reference (CPU plain path, 320x480 f32): candidates rel err '
+          f'{err:.2e} (tol 1e-4); {int(got[1].sum())} proposals on the card, '
+          f'{int(want[1].sum())} on the CPU; the card\'s against the plain '
+          f'selection from its own candidates: {faults} differ (none may); '
+          f'of the CPU\'s the card\'s lacks {lacks} {"ok" if ok else "FAIL"}')
+    return ok
+
+
+def rpn_recall_check(model, cfg, root='build/rpn_coco'):
+    """The proposals' average recall on the card and on the CPU: one f32
+    request at 800x1344 (1000 proposals) on each, rescaled by 1.25; a COCO
+    set of that image (written under ``root``) whose gts are 12 of the
+    CPU's proposals jittered by up to 4 px and 4 random boxes;
+    ``CocoDataset.evaluate('proposal_fast')`` of each side's proposals.
+    Each ``AR@n`` within 1e-6 plus the share of gts that the proposals of
+    either side's first n that the other's first n lack could move (one
+    each). Returns whether they were."""
+    from arfe_tpu_torch.apis import init_detector
+    from arfe_tpu_torch.config import Config
+    from arfe_tpu_torch.data import build_dataset, synthetic
+    cpu = init_detector(cfg, device='cpu')
+    cpu.load_state_dict(model.state_dict())
+    img = torch.randn((1, H, W, 3),
+                      generator=torch.Generator().manual_seed(7)) * 0.2
+    shapes = torch.tensor([IMG_SHAPE])
+    scales = torch.full((1, 4), 1.25)
+    t0 = time.time()
+    want = [t[0] for t in cpu.simple_test(img, shapes, scales, True)]
+    cpu_s = time.time() - t0
+    got = [t[0].cpu() for t in model.simple_test(
+        img.cuda(), shapes.cuda(), scales.cuda(), True)]
+    rng = np.random.RandomState(5)
+    w, h = IMG_SHAPE[1] / 1.25, IMG_SHAPE[0] / 1.25
+    props = want[0][want[1]].numpy()
+    picked = props[rng.permutation(len(props))[:12], :4] \
+        + rng.uniform(-4, 4, (12, 4))
+    xy = rng.uniform(0, [w - 200, h - 200], (4, 2))
+    boxes = np.concatenate([picked, np.concatenate(
+        [xy, xy + rng.uniform(20, 200, (4, 2))], 1)])
+    boxes = np.clip(boxes, 0, [w, h, w, h])
+    anns = [dict(id=k + 1, image_id=1, category_id=1,
+                 bbox=[float(b[0]), float(b[1]), float(b[2] - b[0]),
+                       float(b[3] - b[1])],
+                 area=float((b[2] - b[0]) * (b[3] - b[1])), iscrowd=0)
+            for k, b in enumerate(boxes) if b[2] - b[0] > 1
+            and b[3] - b[1] > 1]
+    os.makedirs(root, exist_ok=True)
+    synthetic.write_annotations(f'{root}/ann.json', [dict(
+        id=1, width=int(w), height=int(h), file_name='0.png')], anns)
+    dataset = build_dataset(dict(
+        type='CocoDataset', ann_file=f'{root}/ann.json',
+        img_prefix=f'{root}/', pipeline=Config.fromfile(cfg).data.test
+        .pipeline), dict(test_mode=True))
+    nums = (100, 300, 1000)
+    ar = {side: dataset.evaluate([[p[0][p[1]].numpy()]],
+                                 metric='proposal_fast', proposal_nums=nums)
+          for side, p in (('cpu', want), ('card', got))}
+
+    def first(p, n):
+        d, v = p[0][p[1]], p[1][p[1]]
+        order = torch.argsort(-d[:, 4], stable=True)[:n]
+        return d[order][None], v[order][None]
+    ok = True
+    for n in nums:
+        a, b = first(want, n), first(got, n)
+        moved = max(bench.unmatched(*a, *b), bench.unmatched(*b, *a))
+        tol = 1e-6 + moved / len(anns)
+        diff = abs(ar['cpu'][f'AR@{n}'] - ar['card'][f'AR@{n}'])
+        ok = ok and diff <= tol
+        print(f'proposal recall AR@{n}: CPU {ar["cpu"][f"AR@{n}"]:.6f}, card '
+              f'{ar["card"][f"AR@{n}"]:.6f}, difference {diff:.2e} (tol '
+              f'1e-6 + {moved} of the first {n} differing / {len(anns)} gts)')
+    ok = ok and ar['cpu']['AR@1000'] > 0.2
+    print(f'proposal recall, card f32 against the CPU plain path at '
+          f'{W}x{H} ({cpu_s:.1f} s on the CPU), {len(anns)} gts '
+          f'{"ok" if ok else "FAIL"}')
+    return ok
+
+
+def rpn(requests, c4_requests, train_dtypes):
+    """The RPN alone (``configs/rpn/rpn_r50_fpn_1x_coco.py``): (a) served
+    (no A, no B; 1000 proposals an image) and against the CPU
+    (:func:`rpn_reference_check`), the proposals' recall against the CPU's
+    (:func:`rpn_recall_check`); (b) trained (no kernel: class-agnostic
+    anchor losses) and a step against the CPU; (c) its C4 form
+    (``rpn_r50_caffe_c4_1x_coco.py``: one stride-16 level, ``nms_pre``
+    12000, 2000 proposals) served and against the CPU. Returns each check's
+    result and the serving, training and C4 serving runs' launches."""
+    cfg = bench.RPN_CFG
+    results = {}
+    with phase('rpn: serve'):
+        model = build_detector(cfg)
+        launches_serve, results['serve'], _ = serve(model, requests)
+    with phase('rpn: card against CPU'):
+        results['reference'] = rpn_reference_check(model, cfg)
+    with phase('rpn: proposal recall, card against CPU'):
+        results['recall'] = rpn_recall_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase('rpn: train'):
+        model, start, launches_train, _, results['train'] = train(
+            cfg, train_dtypes, ('rpn_head.rpn_cls', 'rpn_head.rpn_reg'))
+    with phase('rpn: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    with phase('rpn c4: serve'):
+        model = build_detector(bench.RPN_C4_CFG)
+        launches_c4, results['c4_serve'], _ = serve(model, c4_requests)
+    with phase('rpn c4: card against CPU'):
+        results['c4_reference'] = rpn_reference_check(model,
+                                                      bench.RPN_C4_CFG)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, launches_c4
+
+
+def fsaf(requests, train_dtypes):
+    """FSAF (``configs/fsaf/fsaf_r50_fpn_1x_coco.py``): (a) served (no A,
+    no B) and against the CPU; (b) trained (no kernel; the online level
+    choice's ``gt_assign_hist`` held exactly against the CPU's in the step
+    check) and a step against the CPU. Returns each check's result and the
+    serving and training runs' launches."""
+    cfg = bench.FSAF_CFG
+    results = {}
+    with phase('fsaf: serve'):
+        model = build_detector(cfg, CLS_SCALE['fsaf'])
+        launches_serve, results['serve'], _ = serve(model, requests)
+    with phase('fsaf: card against CPU'):
+        results['reference'] = reference_check(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    with phase('fsaf: train'):
+        model, start, launches_train, _, results['train'] = train(
+            cfg, train_dtypes, ('bbox_head.retina_reg',
+                                'bbox_head.retina_cls'))
+    with phase('fsaf: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train
+
+
+class _KeepLossInputs:
+    """A box loss that keeps the arguments of its first call."""
+
+    def __init__(self, loss):
+        self.loss, self.kept = loss, None
+
+    def __call__(self, pred, target, weight=None, **kwargs):
+        if self.kept is None:
+            self.kept = (pred.detach().clone(), target.detach().clone(),
+                         weight.detach().clone(), kwargs.get('avg_factor'))
+        return self.loss(pred, target, weight, **kwargs)
+
+
+def iou_losses_on_step(kept):
+    """``IoULoss`` and ``BoundedIoULoss`` (the IoU-loss configs' weight 10)
+    and their gradients with respect to the predictions on the GIoU step's
+    RoI head inputs (its sampled RoIs' class-selected deltas and targets,
+    which the JAX package's head and the port's compare as boxes: their
+    ``reg_decoded_bbox`` is not read), on the card and on the CPU: each
+    loss within rtol 1e-4, each gradient within 1e-4 + 1e-3 of the
+    largest."""
+    from arfe_tpu_torch.models.losses import BoundedIoULoss, IoULoss
+    pred, target, weight, avg = kept
+    ok = True
+    for loss in (IoULoss(loss_weight=10.0), BoundedIoULoss(loss_weight=10.0),
+                 ):
+        vals, grads = [], []
+        for dev in ('cuda', 'cpu'):
+            p = pred.detach().to(dev).float().requires_grad_()
+            v = loss(p, target.to(dev), weight.to(dev), avg_factor=avg)
+            v.backward()
+            vals.append(float(v.detach()))
+            grads.append(p.grad.cpu())
+        err = abs(vals[0] - vals[1]) / max(abs(vals[1]), 1e-12)
+        gerr = (grads[0] - grads[1]).abs().max().item()
+        gtol = 1e-4 + 1e-3 * grads[1].abs().max().item()
+        good = err <= 1e-4 and gerr <= gtol and np.isfinite(vals[0])
+        ok = ok and good
+        print(f'{type(loss).__name__} on the GIoU step\'s {pred.shape[0]} '
+              f'sampled RoIs ({int((weight.sum(-1) > 0).sum())} positive): '
+              f'card {vals[0]:.6f}, CPU {vals[1]:.6f}, rel err {err:.2e} (tol '
+              f'1e-4); gradient max abs err {gerr:.2e} (tol {gtol:.2e}) '
+              f'{"ok" if good else "FAIL"}')
+    return ok
+
+
+def faster_family(name, cfg, requests, train_dtypes, must_move, batch=1,
+                  losses_kept=False):
+    """A Faster R-CNN R50 + FPN variant (``cfg``): (a) served (no A, B once
+    a request: over the proposals, or over an AR-RFF head's 3P triple
+    RoIs) and against the CPU on a batch of ``batch``; (b) kernel B on the
+    first bs1 and bs2 requests' RoIs, bit for bit in bf16 and f32; (c)
+    trained (B and C once a step), kernel C on the first step's cotangent
+    and RoIs, and a step against the CPU; with ``losses_kept`` (the GIoU
+    detector), IoU and bounded IoU on that step's RoI head inputs
+    (:func:`iou_losses_on_step`). Returns each check's result, the serving
+    and training runs' launches, and the rows' additions for B and C."""
+    results, rows = {}, [{}, {}, {}]
+    with phase(f'{name}: serve'):
+        model = build_detector(cfg, CLS_SCALE[name])
+        launches_serve, results['serve'], args = serve(model, requests)
+    with phase(f'{name}: card against CPU'):
+        results['reference'] = reference_check(model, cfg, batch)
+    del model
+    torch.cuda.empty_cache()
+    with phase(f'{name}: kernel B on the requests\' RoIs'):
+        results['kernel_b'], rows[1] = check_roi_align_stages(
+            args, 1, f'_{name}', name)
+    del args
+    kept = {}
+
+    def keep_loss_inputs(model):
+        head = model.roi_head.bbox_head
+        kept['loss'] = head.loss_bbox = _KeepLossInputs(head.loss_bbox)
+    with phase(f'{name}: train'):
+        model, start, launches_train, step_args, results['train'] = train(
+            cfg, train_dtypes, must_move,
+            prepare=keep_loss_inputs if losses_kept else None)
+    with phase(f'{name}: kernel C on a step\'s RoIs'):
+        a = step_args['all'][0]
+        results['kernel_c'], rows[2] = check_roi_align_bwd_step(
+            a, key=f'_{name}_r{a[1].shape[0]}')
+    del step_args
+    if losses_kept:
+        head = model.roi_head.bbox_head
+        head.loss_bbox = kept['loss'].loss
+        with phase(f'{name}: IoU and bounded IoU on a step\'s RoIs'):
+            results['iou_losses'] = iou_losses_on_step(kept['loss'].kept)
+    with phase(f'{name}: training step, card against CPU'):
+        results['train_reference'] = train_reference_check(
+            model, start, cfg, readings=False)
+    del model
+    torch.cuda.empty_cache()
+    return results, launches_serve, launches_train, rows
+
+
+VISDRONE_ROOT = 'build/visdrone_coco'
+
+
+def visdrone(name_limit):
+    """The VisDrone "+fac" detector (``configs/mytrain/faster_rcnn_r50_fpn_
+    multicls_1x_visdrone.py``: 12 classes, the config's mean and std) through
+    the CLIs: 8 box PNGs labelled with VisDrone's categories under
+    ``VISDRONE_ROOT``, its ``data.train`` the list of two sets of four of
+    them (a ``ConcatDataset``), two images a batch (the config's one) and
+    the gradient clipped at norm 35 (the config clips nothing: at random
+    weights its "+fac" head's ``loss_cls`` starts in the hundreds and the
+    run reached NaN by its fifth iteration at bs1 on the card and its
+    fourth at bs2 on the CPU); one epoch of 4 iterations through the train
+    CLI and
+    the test CLI with ``--eval bbox`` (:func:`train_and_evaluate`:
+    B and C once an iteration, B once an evaluated image); kernel B on the
+    first evaluated image's RoIs bit for bit, C on the first iteration's
+    cotangent within 1e-5. Returns whether all held, the evaluation's
+    launches and the rows' additions for B and C."""
+    from arfe_tpu_torch.config import Config
+    from arfe_tpu_torch.data import VisdroneDataset
+    cats = [dict(id=i + 1, name=n)
+            for i, n in enumerate(VisdroneDataset.CLASSES)]
+    root = os.path.abspath(VISDRONE_ROOT)
+    base = Config.fromfile(bench.VISDRONE_CFG).todict()['data']['train']
+    train_sets = []
+    for half in ('a', 'b'):
+        train_sets.append(dict(base[0], ann_file=f'{root}/ann_{half}.json',
+                               img_prefix=f'{root}/imgs/'))
+    cfg_path = f'{root}/visdrone_cfg.py'
+    kernels = {}
+
+    def split(images, anns):
+        # the config, and its two train sets: the first four images and
+        # the last four (after train_and_evaluate has emptied the root)
+        from arfe_tpu_torch.data import synthetic
+        with open(cfg_path, 'w') as f:
+            f.write(f"_base_ = ['{os.path.abspath(bench.VISDRONE_CFG)}']\n"
+                    f"data = dict(samples_per_gpu=2, train={train_sets!r})\n"
+                    "optimizer_config = dict(grad_clip=dict(max_norm=35, "
+                    "norm_type=2))\n")
+        for half, (lo, hi) in (('a', (0, 4)), ('b', (4, 8))):
+            ids = {img['id'] for img in images[lo:hi]}
+            synthetic.write_annotations(
+                f'{root}/ann_{half}.json', images[lo:hi],
+                [a for a in anns if a['image_id'] in ids], cats)
+    ok, launches = train_and_evaluate(
+        'visdrone', cfg_path, VISDRONE_ROOT, 1, name_limit, n_a=0,
+        categories=cats, splits=('val', 'test'), kernels=kernels,
+        before_train=split)
+    rows = [{}, {}, {}]
+    feats, rois, lvls = kernels['b']
+    for dt in (torch.bfloat16, torch.float32):
+        ok = _roi_align_bit_for_bit(
+            feats, rois, lvls, dt, 'VisDrone evaluated image',
+            f'_visdrone_r{rois.shape[0]}', rows[1]) and ok
+    good, rows[2] = check_roi_align_bwd_step(
+        kernels['c'], key=f'_visdrone_r{kernels["c"][1].shape[0]}')
+    return ok and good, launches, rows
+
+
 PHASE_SECONDS = {}
 
 
@@ -3305,13 +3811,14 @@ def main():
     with phase('flagship: serve'):
         model = build_detector()
         launches_serve, ok_serve, _ = serve(
-            model, [(1, bf)] * 4 + [(2, bf)] * 2 + [(1, f32)] * 2)
+            model, [(1, bf)] * 2 + [(2, bf), (1, f32)])
     with phase('flagship: card against CPU'):
         ok_ref = reference_check(model)
     del model
     torch.cuda.empty_cache()
     with phase('flagship: train'):
-        model, start, launches, step_args, ok_train = train()
+        model, start, launches, step_args, ok_train = train(
+            dtypes=(bf, bf, f32))
     with phase('flagship: kernel C on a step\'s RoIs'):
         ok_step_rois, row_step = check_roi_align_bwd_step(step_args[7])
     rows[2].update(row_step)
@@ -3320,13 +3827,13 @@ def main():
         ok_train_ref = train_reference_check(model, start)
     del model
     torch.cuda.empty_cache()
-    arrff = arfe('arrff', [(1, bf)] * 2 + [(2, bf)] * 2 + [(1, f32)] * 2,
-                 [bf, bf, f32], ('hh_conv', 'wh_conv', 'final_conv'))
+    arrff = arfe('arrff', [(1, bf), (2, bf), (1, f32)], [bf, f32],
+                 ('hh_conv', 'wh_conv', 'final_conv'))
     rows[1].update(arrff[3][0])
     rows[2].update(arrff[3][1])
     # at random weights the "+fac" presence logits saturate: its
     # loss_multi_cls reads 1 + tanh(1) and can pass no gradient
-    fac = arfe('fac', [(1, bf)] * 2, [bf, bf], ())
+    fac = arfe('fac', [(1, bf)], [bf], ())
     with phase('arrff: evaluate'):
         ok_eval, launches_eval, eval_rows = evaluate_arrff()
     rows[0].update(eval_rows[0])
@@ -3335,35 +3842,32 @@ def main():
         ok_train_run, launches_train_run, train_run_row = train_run_arrff(
             name_limit)
     rows[0].update(train_run_row)
-    mask = mask_rcnn([(1, bf)] * 2 + [(2, bf), (1, f32)], [bf, bf, f32])
+    mask = mask_rcnn([(1, bf), (2, bf), (1, f32)], [bf, f32])
     rows[1].update(mask[3][0])
     rows[2].update(mask[3][1])
     with phase('mask: train and evaluate through the CLIs'):
         ok_mask_eval, launches_mask_eval, mask_row = evaluate_mask(name_limit)
     rows[0].update(mask_row)
-    cascade = cascade_rcnn([(1, bf)] * 2 + [(2, bf), (1, f32)],
-                           [bf, bf, f32])
+    cascade = cascade_rcnn([(1, bf), (2, bf), (1, f32)], [bf, f32])
     rows[1].update(cascade[3][1])
     rows[2].update(cascade[3][2])
     with phase('cascade: train and evaluate through the CLIs'):
         ok_cascade_eval, launches_cascade_eval = train_and_evaluate(
             'cascade', CASCADE_PORT_CFG, 'build/cascade_coco', 3, name_limit)
-    retina = retinanet([(1, bf)] * 2 + [(2, bf), (1, f32)], [bf, bf, f32])
+    retina = retinanet([(1, bf), (2, bf), (1, f32)], [bf, f32])
     rows[0].update(retina[3][0])
     with phase('retina: train and evaluate through the CLIs'):
         ok_retina_eval, launches_retina_eval = train_and_evaluate(
             'retina', RETINA_PORT_CFG, 'build/retina_coco', 0, name_limit)
-    libra_r50 = libra([(1, bf)] * 2 + [(2, bf), (1, f32)], [bf, bf, f32],
-                      name_limit)
+    libra_r50 = libra([(1, bf), (2, bf), (1, f32)], [bf, f32], name_limit)
     for row, more in zip(rows, libra_r50[3]):
         row.update(more)
-    libra_r101 = libra101([bf, bf])
-    libra_ret = libra_retina([(1, bf)] * 2 + [(2, bf), (1, f32)],
-                             [bf, bf, f32])
+    libra_r101 = libra101([bf])
+    libra_ret = libra_retina([(1, bf), (2, bf), (1, f32)], [bf, f32])
     rows[0].update(libra_ret[3][0])
-    ohem_runs = ohem([(1, bf)] * 2 + [(2, bf)], [bf, bf, f32])
+    ohem_runs = ohem([(1, bf), (2, bf)], [bf, f32])
     rows[1].update(ohem_runs[3])
-    bfp = faster_bfp([(1, bf)] * 2 + [(2, bf)])
+    bfp = faster_bfp([(1, bf), (2, bf)])
     caffe_runs = caffe([(1, bf), (2, bf), (1, f32)], [bf, f32], name_limit)
     x101 = libra_x101([(1, bf), (2, bf), (1, f32)], [bf, f32])
     rows[0].update(x101[3])
@@ -3375,6 +3879,28 @@ def main():
     for row, more in zip(rows, cmask[3]):
         row.update(more)
     v1 = mask_v1([(1, bf)])
+    served = [(1, bf), (2, bf), (1, f32)]
+    rpn_runs = rpn(served, [(1, bf), (1, f32)], [bf, f32])
+    fsaf_runs = fsaf(served, [bf, f32])
+    slice12 = {
+        'giou': faster_family('giou', bench.GIOU_CFG, served, [bf, f32],
+                              ('fc_reg',), losses_kept=True),
+        'fpnbu': faster_family('fpnbu', bench.FPNBU_CFG, served, [bf, f32],
+                               ('neck.0.bu_convs', 'neck.0.compress_convs')),
+        'relation': faster_family('relation', bench.RELATION_CFG, served,
+                                  [bf, f32], ()),
+        'cbam': faster_family('cbam', bench.CBAM_CFG, served, [bf, f32],
+                              ('neck.0.cbam_convs.0.channel', 'hh_conv')),
+        'att': faster_family('att', bench.ATT_CFG, served + [(2, f32)],
+                             [bf, f32], ('channel_reduction', 'fc1'),
+                             batch=2)}
+    for runs in slice12.values():
+        rows[1].update(runs[3][1])
+        rows[2].update(runs[3][2])
+    with phase('visdrone: train and evaluate through the CLIs'):
+        ok_visdrone, launches_visdrone, visdrone_rows = visdrone(name_limit)
+    rows[1].update(visdrone_rows[1])
+    rows[2].update(visdrone_rows[2])
     for row in rows:
         row['launches'] = launches[row['name']]
         row['launches_serve'] = launches_serve.get(row['name'], 0)
@@ -3404,6 +3930,12 @@ def main():
                 row[f'launches_{name}_train'] = runs[2][row['name']]
         row['launches_libra_eval'] = libra_r50[4][row['name']]
         row['launches_caffe_eval'] = caffe_runs[3][row['name']]
+        for name, runs in (('rpn', rpn_runs), ('fsaf', fsaf_runs),
+                           *slice12.items()):
+            row[f'launches_{name}_serve'] = runs[1].get(row['name'], 0)
+            row[f'launches_{name}_train'] = runs[2][row['name']]
+        row['launches_rpn_c4_serve'] = rpn_runs[3].get(row['name'], 0)
+        row['launches_visdrone_eval'] = launches_visdrone[row['name']]
     failed = [k for k, v in (('kernels', ok_kernels), ('serve', ok_serve),
                              ('reference', ok_ref), ('train', ok_train),
                              ('kernel C on a step', ok_step_rois),
@@ -3412,7 +3944,8 @@ def main():
                              ('arrff train run', ok_train_run),
                              ('mask evaluate', ok_mask_eval),
                              ('cascade evaluate', ok_cascade_eval),
-                             ('retina evaluate', ok_retina_eval)) if not v]
+                             ('retina evaluate', ok_retina_eval),
+                             ('visdrone', ok_visdrone)) if not v]
     failed += [f'{name} {k}' for name, r in (('arrff', arrff), ('fac', fac),
                                              ('mask', mask),
                                              ('cascade', cascade),
@@ -3427,7 +3960,9 @@ def main():
                                              ('c4_mask', c4_mask_runs),
                                              ('c4', c4_runs),
                                              ('cascade_mask', cmask),
-                                             ('v1', v1))
+                                             ('v1', v1), ('rpn', rpn_runs),
+                                             ('fsaf', fsaf_runs),
+                                             *slice12.items())
                for k, v in r[0].items() if not v]
     print(f'phases: {len(PHASE_SECONDS)}, total {time.time() - t0:.1f} s')
     if failed:

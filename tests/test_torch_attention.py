@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_arrff import FAST_COMPILE
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.ops.non_local import NonLocal2D as JNonLocal2D
@@ -58,15 +59,17 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_non_local_matches_jax():
     c = 64
     jm = JNonLocal2D(c, reduction=1, use_scale=False)
-    params = jax.tree_util.tree_map(np.array, jm.init(jax.random.PRNGKey(0)))
+    # compiled (op by op, each op compiles)
+    params = jax.tree_util.tree_map(np.array, jax.jit(
+        jm.init, compiler_options=FAST_COMPILE)(jax.random.PRNGKey(0)))
     rng = np.random.RandomState(2)
     # conv_out is zero-initialised; make it nonzero so attention matters
     params['conv_out']['conv']['weight'] = rng.randn(
         1, 1, c, c).astype(np.float32) * 0.05
     params['conv_out']['conv']['bias'] = rng.randn(c).astype(np.float32)
     x = rng.randn(2, 7, 11, c).astype(np.float32)
-    want = np.asarray(jm(jax.tree_util.tree_map(jnp.asarray, params),
-                         jnp.asarray(x)))
+    want = np.asarray(jax.jit(jm.__call__, compiler_options=FAST_COMPILE)(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x)))
     tm = NonLocal2D(c, reduction=1, use_scale=False)
     tm.load_state_dict(params_to_state_dict(params), strict=True)
     with torch.no_grad():

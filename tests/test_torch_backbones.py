@@ -3,12 +3,13 @@ shared head and mmdet 1.x's ``LegacyDeltaXYWHBBoxCoder`` against the JAX
 package on the CPU, with the same weights and seeded numpy inputs; and the
 configs these pieces let the port build.
 
-ResNet, its bottleneck and ``ResLayer`` start from the port's seeded weights
-(BatchNorm statistics and scales perturbed) carried to JAX by the JAX
-package's ``state_dict_to_params``; ResNeXt starts from the JAX package's
-own ``init``, carried to the port by ``convert.params_to_state_dict`` and
-loaded with ``strict=True``: its grouped 3x3 kernels are HWIO (3, 3, C / g,
-C) there and must arrive as torch's (C, C / g, 3, 3).
+Every module starts from the port's seeded weights (BatchNorm statistics
+and scales perturbed) carried to JAX by the JAX package's
+``state_dict_to_params``; for ResNeXt that tree must be the JAX package's
+own ``init``'s (``jax.eval_shape``, no compilation) and come back through
+``convert.params_to_state_dict`` with ``strict=True``: its grouped 3x3
+kernels are HWIO (3, 3, C / g, C) there and must arrive as torch's (C, C /
+g, 3, 3).
 """
 import os
 
@@ -123,19 +124,24 @@ def test_caffe_resnet_matches_jax():
 def test_resnext_matches_jax(style):
     """A tiny ResNeXt-50 (base 16 channels, 4 groups of width 16 / 64 of a
     stage's planes each: 16, 32, 64, 128 grouped channels), in both styles:
-    the JAX package's ``init`` carried over, loaded with ``strict=True``
-    (the grouped kernels' layout), every stage within ATOL."""
+    the port's seeded weights in the JAX package's ``init`` tree (names and
+    shapes, the grouped kernels' layout, from ``jax.eval_shape``), loaded
+    back with ``strict=True``; every stage within ATOL."""
     kw = dict(depth=50, base_channels=16, groups=4, base_width=16,
               style=style)
     ref = JResNeXt(**kw)
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(
-        ref.init, compiler_options=FAST_COMPILE)(jax.random.PRNGKey(0)))
-    port = ResNeXt(**kw)
+    # the JAX init's parameter tree (names and shapes, without compiling
+    # it), filled with the port's seeded weights
+    shapes = jax.eval_shape(ref.init, jax.random.PRNGKey(0))
+    port = seeded(ResNeXt(**kw))
+    params = state_dict_to_params(port.state_dict())
+    assert jax.tree_util.tree_map(lambda x: tuple(x.shape), params) == \
+        jax.tree_util.tree_map(lambda x: tuple(x.shape), shapes)
     port.load_state_dict(params_to_state_dict(params), strict=True)
     port.eval()
     conv2 = port.layer2[0].conv2
     assert conv2.groups == 4 and tuple(conv2.weight.shape) == (32, 8, 3, 3)
-    assert tuple(params['layer2']['0']['conv2']['weight'].shape) == \
+    assert tuple(shapes['layer2']['0']['conv2']['weight'].shape) == \
         (3, 3, 8, 32)
     x = image((1, 64, 96, 3))
     want = run_jax(ref, params, x)
@@ -176,11 +182,15 @@ def test_legacy_coder_matches_jax():
     stds = (0.1, 0.1, 0.2, 0.2)
     port, ref = LegacyDeltaXYWHBBoxCoder(target_stds=stds), \
         JLegacy(target_stds=stds)
+    # the JAX coder compiled (op by op, each of its ops compiles)
+    encode = jax.jit(ref.encode, compiler_options=FAST_COMPILE)
+    decode = jax.jit(ref.decode, static_argnames='max_shape',
+                     compiler_options=FAST_COMPILE)
     got = port.encode(torch.from_numpy(props), torch.from_numpy(gts))
-    want = np.asarray(ref.encode(jnp.asarray(props), jnp.asarray(gts)))
+    want = np.asarray(encode(jnp.asarray(props), jnp.asarray(gts)))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     back = port.decode(torch.from_numpy(props), got)
-    want_back = np.asarray(ref.decode(jnp.asarray(props), jnp.asarray(want)))
+    want_back = np.asarray(decode(jnp.asarray(props), jnp.asarray(want)))
     np.testing.assert_allclose(back.numpy(), want_back, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(back.numpy(), gts + [-0.5, -0.5, 0.5, 0.5],
                                rtol=1e-6, atol=1e-4)
@@ -188,15 +198,18 @@ def test_legacy_coder_matches_jax():
     shapes = np.array([[150., 180.], [120., 200.]], np.float32)
     got = port.decode(torch.from_numpy(props), torch.from_numpy(deltas),
                       max_shape=torch.from_numpy(shapes))
-    want = np.stack([np.asarray(ref.decode(
+    want = np.stack([np.asarray(decode(
         jnp.asarray(props[i]), jnp.asarray(deltas[i]),
-        max_shape=tuple(shapes[i]))) for i in range(2)])
+        max_shape=tuple(float(x) for x in shapes[i]))) for i in range(2)])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     assert got[0, :, 0::4].max() <= shapes[0, 1] - 1
 
 
-#: the configs this slice lets the port build (ResNet's caffe style,
-#: ResNeXt, Cascade Mask R-CNN, the C4 layout, the legacy coder)
+#: configs the newer pieces let the port build: ResNet's caffe style,
+#: ResNeXt, Cascade Mask R-CNN, the C4 layout and the legacy coder; then
+#: the RPN, FSAF and its Faster hybrids (built, not run, as in the JAX
+#: package: ``tests/test_zoo_forward.py:32-36``), the IoU losses, the
+#: experimental necks, AttRoIs and VisDrone
 CONFIGS = [
     'cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py',
     'cascade_rcnn/cascade_mask_rcnn_r101_fpn_1x_coco.py',
@@ -211,6 +224,21 @@ CONFIGS = [
     'faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py',
     'mask_rcnn/mask_rcnn_r50_caffe_c4_1x_coco.py',
     'mask_rcnn/mask_rcnn_r50_caffe_fpn_poly_1x_coco_v1.py',
+    'rpn/rpn_r50_fpn_1x_coco.py',
+    'rpn/rpn_r50_caffe_c4_1x_coco.py',
+    'fsaf/fsaf_r50_fpn_1x_coco.py',
+    'arfe/faster_fsaf_r50_1x_coco.py',
+    'mytrain/faster_fsaf_r50_coco.py',
+    'mytrain/faster_rcnn_r50_fsaf_1x_coco.py',
+    'faster_rcnn/faster_rcnn_r50_fpn_iou_1x_coco.py',
+    'faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py',
+    'faster_rcnn/faster_rcnn_r50_fpn_bounded_iou_1x_coco.py',
+    'arfe/faster_rcnn_r50_fpn_bu_1x_coco.py',
+    'arfe/faster_rcnn_r50_fpn_relation_1x_coco.py',
+    'faster_rcnn/faster_rcnn_r50_fpn_1x_rel_visfrone.py',
+    'mytrain/faster_rcnn_r50_fpn_cbam_1x_coco.py',
+    'faster_rcnn/faster_rcnn_r50_fpn_att_1x_visdrone.py',
+    'mytrain/faster_rcnn_r50_fpn_multicls_1x_visdrone.py',
 ]
 
 
@@ -224,8 +252,19 @@ def test_config_builds(path):
     with torch.device('meta'):
         model = build_detector(model_cfg, train_cfg=cfg['train_cfg'],
                                test_cfg=cfg['test_cfg'])
-    for split in ('train', 'test'):
-        Compose(cfg['data'][split]['pipeline'])
+    # a list-valued data.train (VisDrone's) is a pipeline a dataset; the
+    # ARFE hybrid's config has no data section
+    data = cfg.get('data', {})
+    for split in ([data['train']] if isinstance(data.get('train'), dict)
+                  else data.get('train', [])) + [data.get('test')]:
+        if split is not None:
+            Compose(split['pipeline'])
     assert model.with_mask == ('mask' in path)
+    assert ('data' in cfg) == (path != 'arfe/faster_fsaf_r50_1x_coco.py')
     if 'cascade' in path:
         assert model.num_step_extractions == 6 and not model.serves_masks
+    if path.startswith('rpn/'):
+        assert type(model).__name__ == 'RPN' and model.num_extractions == 0
+    if 'fsaf_' in path and not path.startswith('fsaf/'):
+        # the hybrids mount FSAFHead as the RoI head's bbox head
+        assert type(model.roi_head.bbox_head).__name__ == 'FSAFHead'

@@ -1,7 +1,9 @@
 """The port stands alone: importing any of its modules (the data and
 evaluation path, the training run, the masks of Mask R-CNN, Cascade R-CNN's
-and RetinaNet's heads, ResNeXt, the C4 shared head, and the ``test``,
-``train`` and ``e2e_smoke`` CLIs among them), or ``chip_smoke``,
+and RetinaNet's heads, ResNeXt, the C4 shared head, the RPN detector, FSAF,
+the IoU losses, the experimental necks, AttRoIs, the dataset wrappers,
+proposal recall, and the ``test``, ``train``, ``e2e_smoke`` and
+``config_census`` tools among them), or ``chip_smoke``,
 loads no JAX, no optax and nothing of the JAX package; its entry point
 defaults to the card."""
 import os
@@ -57,7 +59,16 @@ missing = [m for m in ('arfe_tpu_torch.train.optimizer',
                        'arfe_tpu_torch.tools.step_conditioning',
                        'arfe_tpu_torch.models.backbones.resnext',
                        'arfe_tpu_torch.models.roi_heads.shared_heads.'
-                       'res_layer')
+                       'res_layer',
+                       'arfe_tpu_torch.models.detectors.rpn',
+                       'arfe_tpu_torch.models.dense_heads.fsaf_head',
+                       'arfe_tpu_torch.models.losses.iou_loss',
+                       'arfe_tpu_torch.models.necks.experimental_fpns',
+                       'arfe_tpu_torch.models.roi_heads.bbox_heads.'
+                       'attrois_bbox_head',
+                       'arfe_tpu_torch.data.dataset_wrappers',
+                       'arfe_tpu_torch.core.evaluation.recall',
+                       'arfe_tpu_torch.tools.config_census')
            if m not in sys.modules]
 print('modules:', len(sys.modules), 'forbidden:', bad, 'missing:', missing)
 sys.exit(1 if bad or missing else 0)

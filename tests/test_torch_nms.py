@@ -1,9 +1,11 @@
 """The port's NMS against the JAX package's on the CPU: the same kept boxes,
 scores, indices, labels and padding, exactly."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_arrff import FAST_COMPILE
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.core.post.bbox_nms import multiclass_nms as j_multiclass_nms
@@ -24,6 +26,12 @@ def _boxes(n, seed, spread=100.0):
     return boxes, scores
 
 
+def _jit(fn):
+    """``fn`` compiled once at XLA's lowest optimisation level (called op
+    by op, its loops compile at the default level)."""
+    return jax.jit(fn, compiler_options=FAST_COMPILE)
+
+
 def _assert_same(got, want):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -35,9 +43,10 @@ def _assert_same(got, want):
 def test_nms_matches_jax(n, max_out, masked):
     boxes, scores = _boxes(n, n + max_out)
     valid = np.random.RandomState(1).rand(n) > 0.2 if masked else None
-    want = j_nms(jnp.asarray(boxes), jnp.asarray(scores), 0.5,
-                 max_out=max_out,
-                 valid_mask=None if valid is None else jnp.asarray(valid))
+    want = _jit(lambda b, s, v: j_nms(b, s, 0.5, max_out=max_out,
+                                      valid_mask=v))(
+        jnp.asarray(boxes), jnp.asarray(scores),
+        None if valid is None else jnp.asarray(valid))
     got = tn.nms(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5,
                  max_out=max_out,
                  valid_mask=None if valid is None else torch.from_numpy(valid))
@@ -60,8 +69,8 @@ def test_batched_nms_matches_jax():
     boxes, scores = _boxes(200, 7)
     idxs = np.random.RandomState(7).randint(0, 5, 200).astype(np.int32)
     cfg = dict(type='nms', iou_thr=0.5)
-    want = j_batched_nms(jnp.asarray(boxes), jnp.asarray(scores),
-                         jnp.asarray(idxs), cfg, max_out=80)
+    want = _jit(lambda b, s, i: j_batched_nms(b, s, i, cfg, max_out=80))(
+        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(idxs))
     got = tn.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
                          torch.from_numpy(idxs), cfg, max_out=80)
     _assert_same(got, want)
@@ -80,9 +89,10 @@ def test_multiclass_nms_matches_jax():
     got = multiclass_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
                          0.05, cfg, 30, pre_nms_cap=150,
                          valid_mask=torch.from_numpy(valid))
+    reference = _jit(lambda bx, sc, v: j_multiclass_nms(
+        bx, sc, 0.05, cfg, 30, pre_nms_cap=150, valid_mask=v))
     for i in range(b):
-        want = j_multiclass_nms(jnp.asarray(boxes[i]), jnp.asarray(scores[i]),
-                                0.05, cfg, 30, pre_nms_cap=150,
-                                valid_mask=jnp.asarray(valid[i]))
+        want = reference(jnp.asarray(boxes[i]), jnp.asarray(scores[i]),
+                         jnp.asarray(valid[i]))
         assert got[1].dtype == torch.int32
         _assert_same([t[i] for t in got], want)

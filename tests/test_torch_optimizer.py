@@ -8,6 +8,7 @@ import optax
 import pytest
 import torch
 from torch import nn
+from test_torch_arrff import FAST_COMPILE
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 from arfe_tpu.train import build_lr_schedule as j_build_lr_schedule
@@ -106,6 +107,12 @@ def test_sgd_three_steps_match_optax():
                                  dict(backbone=dict(frozen_stages=1))))
     jstate = jopt.init(jparams)
 
+    # the JAX step compiled once (op by op, each of its ops compiles)
+    def jax_step(g, s, p):
+        updates, s = jopt.update(g, s, p)
+        return optax.apply_updates(p, updates), s
+    jax_step = jax.jit(jax_step, compiler_options=FAST_COMPILE)
+
     rng = np.random.RandomState(1)
     start = {k: v.detach().clone() for k, v in net.named_parameters()}
     for it in range(3):
@@ -118,10 +125,9 @@ def test_sgd_three_steps_match_optax():
             p.grad = torch.from_numpy(grads[name])
         opt.step()
         scheduler.step()
-        updates, jstate = jopt.update(
+        jparams, jstate = jax_step(
             jax.tree_util.tree_map(jnp.asarray, _nested(grads)), jstate,
             jparams)
-        jparams = optax.apply_updates(jparams, updates)
         want = _flat(jparams)
         for name, p in net.named_parameters():
             np.testing.assert_allclose(p.detach().numpy(), want[name],

@@ -184,10 +184,12 @@ def _rpn_assign_once(run):
                                                       anchor_major=True)
     tanchors, tflags = tm.rpn_head._flat_anchor_table(run['sizes'], 'cpu')
     border = tm.rpn_head.train_cfg['allowed_border']
-    want = [jm.rpn_head.assigner.assign(
-        janchors, jnp.asarray(d['gt'][i]), jnp.asarray(d['gvalid'][i]),
-        box_valid=j_anchor_inside_flags(janchors, jflags, SHAPES[i], border))
-        for i in range(B)]
+    # one compiled program for both images (op by op, each op compiles)
+    assign = jax.jit(lambda gt, gvalid, shape: jm.rpn_head.assigner.assign(
+        janchors, gt, gvalid, box_valid=j_anchor_inside_flags(
+            janchors, jflags, shape, border)), compiler_options=FAST_COMPILE)
+    want = [assign(jnp.asarray(d['gt'][i]), jnp.asarray(d['gvalid'][i]),
+                   jnp.asarray(SHAPES[i])) for i in range(B)]
     got = tm.rpn_head.assigner.assign(
         tanchors, torch.from_numpy(d['gt']), torch.from_numpy(d['gvalid']),
         box_valid=anchor_inside_flags(tanchors, tflags,
@@ -236,7 +238,8 @@ def _rcnn_assign_once(run):
     jm, tm, d = run['jm'], run['tm'], run['data']
     jargs = [jnp.asarray(d[k]) for k in ('props', 'pvalid', 'gt', 'gvalid',
                                          'glabels')]
-    want = jax.vmap(jm.roi_head._assign_single)(*jargs)
+    want = jax.jit(jax.vmap(jm.roi_head._assign_single),
+                   compiler_options=FAST_COMPILE)(*jargs)
     got = tm.roi_head._assign(*[torch.from_numpy(d[k]) for k in (
         'props', 'pvalid', 'gt', 'gvalid')])
     return want, got
@@ -269,8 +272,9 @@ def test_sampler_matches_jax(run, head):
         jsampler = run['jm'].roi_head.sampler
         tsampler = run['tm'].roi_head.sampler
     got = tsampler.sample(None, tassigned)
+    sample = jax.jit(jsampler.sample, compiler_options=FAST_COMPILE)
     for i in range(B):
-        want = jsampler.sample(jax.random.PRNGKey(i), jassigned[i])
+        want = sample(jax.random.PRNGKey(i), jassigned[i])
         for k in ('inds', 'is_pos', 'valid'):
             np.testing.assert_array_equal(got[k][i].numpy(),
                                           np.asarray(want[k]))
